@@ -1,0 +1,49 @@
+"""gs_localization_torch — the PyTorch/CUDA port of gs_localization_tpu.
+
+Same sub-packages and module names as the JAX package, so each counterpart
+is found by path:
+
+- ``core``      : cameras, SE(3), spherical harmonics, Gaussian parameters.
+- ``raster``    : preprocess, stream binning, the stream blend (hand-written
+                  CUDA kernels for sm_90a, plain PyTorch on the CPU), pose mode.
+- ``data``      : Gaussian map PLY files.
+- ``ops``       : image-gradient tracking masks.
+- ``loc``       : gradient-descent pose refinement.
+- ``sfm``       : pose-error metrics.
+- ``pipelines`` : query localization.
+
+Device policy: entry points that create tensors take ``device="cuda"`` by
+default and raise when CUDA is absent; pass ``device="cpu"`` to run the plain
+PyTorch versions. Everything downstream follows the device of its tensors: a
+CPU tensor takes the plain version of a kernel, a CUDA tensor launches the
+kernel or raises. Nothing falls back silently. Everything is float32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+__version__ = "0.1.0"
+
+# Launch counters of the hand-written kernels: each wrapper adds one where
+# it launches its kernel, and nowhere else.
+LAUNCHES: Dict[str, int] = {"stream_fwd": 0, "stream_bwd": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a torch.device; raises if it names CUDA and there is none."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "gs_localization_torch: CUDA is not available; pass device='cpu' "
+            "to run the plain PyTorch versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,406 @@
+"""Stream blend: per-tile windows read straight from the pair stream.
+
+forward   (K1) each 16x16 tile walks its chunk-aligned window
+          [tstart, tstart + walk_count) of the transposed pair stream
+          (16, MR_AL + chunk) front to back, in chunks, and stops after the
+          first chunk at whose end every pixel has T < 1e-4.
+backward  (K2) walks the visited chunks in reverse from the residuals and
+          writes per-pair dL/d(x, y, a, b, c, opa, r, g, b, depth), summed
+          over the tile's pixels, at the pair's own stream position.
+
+Two implementations of each, chosen by the device of the tensors:
+
+- CUDA tensors launch the hand-written kernels of ``csrc/stream_blend.cu``
+  (built at first use, ``_kernels.py``), or raise;
+- CPU tensors take the plain PyTorch versions below
+  (``stream_blend_fwd_plain`` / ``stream_blend_bwd_plain``), which are also
+  the yardstick the kernels are held against on the card.
+
+Row layout: 0 x, 1 y, 2..4 conic a b c, 5 opacity, 6 valid, 7 pad,
+8..10 rgb, 11 depth, 12..15 zero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import LAUNCHES
+from .. import _kernels
+from .binning import StreamBins
+from .blend import TileBlendOut
+from .constants import ALPHA_MAX, ALPHA_MIN, LOG_T_EPS
+
+_RPAD = 16          # stream rows: 12 semantic rows, padded
+_TILE = 16          # the kernels run one 256-thread CTA per 16x16 tile
+_MAX_CHUNK = 512    # K2 shared memory: 368 * chunk bytes <= 227 KB
+
+# plain versions: tiles per block, so that (tiles, 256, chunk) temporaries
+# stay near 2^22 elements whatever the scene
+_PLAIN_ELEMS = 1 << 22
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _window(tstart, walk_counts, mrpad: int, chunk: int):
+    """The kernels' clamp: a corrupt bin table never indexes out of bounds."""
+    start = torch.clamp(tstart.long(), 0, mrpad - chunk)
+    count = torch.minimum(torch.clamp_min(walk_counts.long(), 0),
+                          mrpad - chunk - start)
+    return start, count
+
+
+def _pixel_coords(tiles: torch.Tensor, grid_x: int, ts: int):
+    """(B,) tile ids -> (B, npix) float pixel x, y."""
+    ii = torch.arange(ts * ts, device=tiles.device)
+    px = ((tiles % grid_x) * ts)[:, None] + ii % ts
+    py = (torch.div(tiles, grid_x, rounding_mode="floor") * ts)[:, None] \
+        + torch.div(ii, ts, rounding_mode="floor")
+    return px.to(torch.float32), py.to(torch.float32)
+
+
+def _chunk_alpha(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                 lane_ok: torch.Tensor) -> torch.Tensor:
+    """Gated alpha (B, npix, G) of one chunk g (16, B, G); same operation
+    order as the kernels' gate."""
+    x, y = g[0][:, None, :], g[1][:, None, :]
+    ca, cb, cc = g[2][:, None, :], g[3][:, None, :], g[4][:, None, :]
+    opa, vld = g[5][:, None, :], g[6][:, None, :]
+    dx = x - px[:, :, None]
+    dy = y - py[:, :, None]
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    araw = opa * torch.exp(torch.clamp_max(power, 0.0))
+    gate = ((power <= 0.0) & (araw >= ALPHA_MIN) & (vld > 0.5)
+            & lane_ok[:, None, :])
+    return torch.where(gate, torch.clamp_max(araw, ALPHA_MAX),
+                       torch.zeros_like(araw))
+
+
+def _fwd_block(win: torch.Tensor, count: torch.Tensor, px: torch.Tensor,
+               py: torch.Tensor, chunk: int):
+    """Blend one block of tiles over their gathered windows
+    win (16, B, n_chunks*chunk). Returns accum (B,4,npix), log_app (B,npix),
+    log_full (B,npix), k_stop (B,)."""
+    bsz, npix = px.shape
+    dev = win.device
+    n_chunks = torch.div(count + chunk - 1, chunk, rounding_mode="floor")
+    log_full = torch.zeros((bsz, npix), dtype=torch.float32, device=dev)
+    log_app = torch.zeros_like(log_full)
+    acc = torch.zeros((bsz, 4, npix), dtype=torch.float32, device=dev)
+    k_stop = torch.zeros((bsz,), dtype=torch.int64, device=dev)
+    lanes = torch.arange(chunk, device=dev)
+    for k in range(win.shape[2] // chunk):
+        running = (k < n_chunks) & (log_full.amax(dim=1) >= LOG_T_EPS)
+        g = win[:, :, k * chunk:(k + 1) * chunk]
+        lane_ok = ((k * chunk + lanes)[None, :] < count[:, None]) \
+            & running[:, None]
+        alpha = _chunk_alpha(g, px, py, lane_ok)
+        la = torch.log(1.0 - alpha)
+        clog = log_full[:, :, None] + torch.cumsum(la, dim=2)
+        applied = clog >= LOG_T_EPS
+        w = torch.where(applied, alpha * torch.exp(clog - la),
+                        torch.zeros_like(alpha))
+        acc = acc + torch.einsum("cbg,bpg->bcp", g[8:12], w)
+        log_full = log_full + la.sum(dim=2)
+        log_app = log_app + torch.where(applied, la,
+                                        torch.zeros_like(la)).sum(dim=2)
+        k_stop = k_stop + running.to(torch.int64)
+    return acc, log_app, log_full, k_stop
+
+
+def _blocks(num_tiles: int, npix: int, chunk: int):
+    step = max(1, _PLAIN_ELEMS // (npix * chunk))
+    for lo in range(0, num_tiles, step):
+        yield lo, min(num_tiles, lo + step)
+
+
+def _gather_windows(stream, start, count, chunk: int):
+    """(16, B, K*chunk) windows of a block of tiles and their positions."""
+    mrpad = stream.shape[1]
+    k_max = int(torch.div(count + chunk - 1, chunk,
+                          rounding_mode="floor").max()) if count.numel() else 0
+    pos = start[:, None] + torch.arange(k_max * chunk, device=stream.device)
+    pos = torch.clamp_max(pos, mrpad - 1)    # lanes past count are gated
+    return stream[:, pos], pos
+
+
+def stream_blend_fwd_plain(stream: torch.Tensor, tstart: torch.Tensor,
+                           walk_counts: torch.Tensor, grid_x: int, ts: int,
+                           chunk: int):
+    """K1's outputs in plain PyTorch: accum (T,4,npix), log_t (T,npix,1),
+    resid (T,npix,2) = [log_full, k_stop]."""
+    num_tiles = tstart.shape[0]
+    npix = ts * ts
+    mrpad = stream.shape[1]
+    start, count = _window(tstart, walk_counts, mrpad, chunk)
+    tiles = torch.arange(num_tiles, device=stream.device)
+    accum = torch.zeros((num_tiles, 4, npix), dtype=torch.float32,
+                        device=stream.device)
+    log_t = torch.zeros((num_tiles, npix, 1), dtype=torch.float32,
+                        device=stream.device)
+    resid = torch.zeros((num_tiles, npix, 2), dtype=torch.float32,
+                        device=stream.device)
+    for lo, hi in _blocks(num_tiles, npix, chunk):
+        win, _ = _gather_windows(stream, start[lo:hi], count[lo:hi], chunk)
+        px, py = _pixel_coords(tiles[lo:hi], grid_x, ts)
+        acc, log_app, log_full, k_stop = _fwd_block(win, count[lo:hi], px, py,
+                                                    chunk)
+        accum[lo:hi] = acc
+        log_t[lo:hi, :, 0] = log_app
+        resid[lo:hi, :, 0] = log_full
+        resid[lo:hi, :, 1] = k_stop.to(torch.float32)[:, None]
+    return accum, log_t, resid
+
+
+def stream_blend_bwd_plain(stream: torch.Tensor, tstart: torch.Tensor,
+                           walk_counts: torch.Tensor, gacc: torch.Tensor,
+                           glogt: torch.Tensor, grid_x: int, ts: int,
+                           chunk: int) -> torch.Tensor:
+    """K2's dstream (16, mrpad) in plain PyTorch: autograd through the plain
+    forward, one block of tiles at a time. Positions no tile visits are
+    zero; the caller masks positions >= kept_al."""
+    num_tiles = tstart.shape[0]
+    npix = ts * ts
+    mrpad = stream.shape[1]
+    start, count = _window(tstart, walk_counts, mrpad, chunk)
+    tiles = torch.arange(num_tiles, device=stream.device)
+    dstream = torch.zeros_like(stream)
+    rows = torch.arange(_RPAD, device=stream.device)[:, None, None]
+    for lo, hi in _blocks(num_tiles, npix, chunk):
+        win, pos = _gather_windows(stream.detach(), start[lo:hi],
+                                   count[lo:hi], chunk)
+        if win.shape[2] == 0:
+            continue
+        px, py = _pixel_coords(tiles[lo:hi], grid_x, ts)
+        with torch.enable_grad():
+            win = win.requires_grad_()
+            acc, log_app, _, _ = _fwd_block(win, count[lo:hi], px, py, chunk)
+            dwin, = torch.autograd.grad(
+                (acc, log_app), (win,),
+                (gacc[lo:hi], glogt[lo:hi].reshape(hi - lo, npix)))
+        dstream.index_put_((rows, pos[None].expand_as(dwin)), dwin,
+                           accumulate=True)
+    return dstream
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _kernels.load()
+    lib.gsl_stream_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+    lib.gsl_stream_fwd.restype = _I
+    lib.gsl_stream_bwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                                   _P, _P]
+    lib.gsl_stream_bwd.restype = _I
+    lib.gsl_error_string.argtypes = [_I]
+    lib.gsl_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_common(stream, tstart, walk_counts, ts: int, chunk: int) -> None:
+    if ts != _TILE:
+        raise ValueError(f"the CUDA stream blend takes tile_size {_TILE}, "
+                         f"got {ts}")
+    if chunk % 32 or not 32 <= chunk <= _MAX_CHUNK:
+        raise ValueError(f"chunk must be a multiple of 32 in [32, "
+                         f"{_MAX_CHUNK}], got {chunk}")
+    dev = stream.device
+    if not stream.is_cuda:
+        raise ValueError(f"the CUDA stream blend takes CUDA tensors, got "
+                         f"{dev}")
+    if stream.dim() != 2 or stream.shape[0] != _RPAD \
+            or stream.shape[1] < chunk:
+        raise ValueError(f"stream: shape {tuple(stream.shape)}, expected "
+                         f"({_RPAD}, >= chunk)")
+    _check(stream, "stream", torch.float32, stream.shape, dev)
+    _check(tstart, "tstart", torch.int32, tstart.shape, dev)
+    _check(walk_counts, "walk_counts", torch.int32, tstart.shape, dev)
+    if tstart.dim() != 1:
+        raise ValueError("tstart must be 1-D")
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} "
+                           f"({lib.gsl_error_string(rc).decode()})")
+
+
+def stream_blend_fwd_cuda(stream, tstart, walk_counts, grid_x: int, ts: int,
+                          chunk: int):
+    """Launch K1: -> accum (T,4,npix), log_t (T,npix,1), resid (T,npix,2)."""
+    _check_common(stream, tstart, walk_counts, ts, chunk)
+    lib = _lib()
+    num_tiles = tstart.shape[0]
+    npix = ts * ts
+    out = dict(dtype=torch.float32, device=stream.device)
+    accum = torch.empty((num_tiles, 4, npix), **out)
+    log_t = torch.empty((num_tiles, npix, 1), **out)
+    resid = torch.empty((num_tiles, npix, 2), **out)
+    with torch.cuda.device(stream.device):
+        cs = torch.cuda.current_stream().cuda_stream
+        rc = lib.gsl_stream_fwd(
+            tstart.data_ptr(), walk_counts.data_ptr(), stream.data_ptr(),
+            num_tiles, stream.shape[1], grid_x, chunk, accum.data_ptr(),
+            log_t.data_ptr(), resid.data_ptr(), cs)
+    _raise_on(lib, rc, "stream blend forward launch")
+    LAUNCHES["stream_fwd"] += 1
+    return accum, log_t, resid
+
+
+def stream_blend_bwd_cuda(stream, tstart, walk_counts, gacc, glogt, resid,
+                          grid_x: int, ts: int, chunk: int) -> torch.Tensor:
+    """Launch K2: -> dstream (16, mrpad), zero where no tile writes."""
+    _check_common(stream, tstart, walk_counts, ts, chunk)
+    num_tiles = tstart.shape[0]
+    npix = ts * ts
+    dev = stream.device
+    _check(gacc, "gacc", torch.float32, (num_tiles, 4, npix), dev)
+    _check(glogt, "glogt", torch.float32, (num_tiles, npix, 1), dev)
+    _check(resid, "resid", torch.float32, (num_tiles, npix, 2), dev)
+    lib = _lib()
+    dstream = torch.zeros_like(stream)
+    with torch.cuda.device(dev):
+        cs = torch.cuda.current_stream().cuda_stream
+        rc = lib.gsl_stream_bwd(
+            tstart.data_ptr(), walk_counts.data_ptr(), stream.data_ptr(),
+            num_tiles, stream.shape[1], grid_x, chunk, gacc.data_ptr(),
+            glogt.data_ptr(), resid.data_ptr(), dstream.data_ptr(), cs)
+    _raise_on(lib, rc, "stream blend backward launch")
+    LAUNCHES["stream_bwd"] += 1
+    return dstream
+
+
+# ---------------------------------------------------------------------------
+# device dispatch + autograd
+# ---------------------------------------------------------------------------
+
+def stream_blend_fwd(stream, tstart, walk_counts, grid_x: int, ts: int,
+                     chunk: int):
+    """K1 on CUDA tensors, its plain version on CPU tensors."""
+    if stream.is_cuda:
+        return stream_blend_fwd_cuda(stream, tstart, walk_counts, grid_x, ts,
+                                     chunk)
+    if stream.device.type == "cpu":
+        return stream_blend_fwd_plain(stream, tstart, walk_counts, grid_x,
+                                      ts, chunk)
+    raise ValueError(f"unsupported device {stream.device}")
+
+
+def stream_blend_bwd(stream, tstart, walk_counts, gacc, glogt, resid,
+                     grid_x: int, ts: int, chunk: int) -> torch.Tensor:
+    """K2 on CUDA tensors, its plain version on CPU tensors."""
+    if stream.is_cuda:
+        return stream_blend_bwd_cuda(stream, tstart, walk_counts, gacc,
+                                     glogt, resid, grid_x, ts, chunk)
+    if stream.device.type == "cpu":
+        return stream_blend_bwd_plain(stream, tstart, walk_counts, gacc,
+                                      glogt, grid_x, ts, chunk)
+    raise ValueError(f"unsupported device {stream.device}")
+
+
+class _StreamBlend(torch.autograd.Function):
+    """Blend of a pre-assembled stream; the cotangent of the stream itself
+    is the gradient (no slot reduction)."""
+
+    @staticmethod
+    def forward(ctx, stream_t, tstart, walk_counts, kept_al, grid_x, ts,
+                chunk):
+        accum, log_t, resid = stream_blend_fwd(stream_t, tstart, walk_counts,
+                                               grid_x, ts, chunk)
+        ctx.save_for_backward(stream_t, tstart, walk_counts, kept_al, resid)
+        ctx.cfg = (grid_x, ts, chunk)
+        return accum, log_t
+
+    @staticmethod
+    def backward(ctx, gacc, glogt):
+        stream_t, tstart, walk_counts, kept_al, resid = ctx.saved_tensors
+        grid_x, ts, chunk = ctx.cfg
+        dstream = stream_blend_bwd(stream_t, tstart, walk_counts,
+                                   gacc.contiguous(), glogt.contiguous(),
+                                   resid, grid_x, ts, chunk)
+        # positions past the live aligned stream carry no pair
+        pos_ok = torch.arange(stream_t.shape[1],
+                              device=stream_t.device) < kept_al
+        dstream = torch.where(pos_ok[None, :], dstream,
+                              torch.zeros_like(dstream))
+        return dstream, None, None, None, None, None, None
+
+
+def _tile_out(accum: torch.Tensor, log_t: torch.Tensor) -> TileBlendOut:
+    return TileBlendOut(color=accum[:, 0:3, :].transpose(1, 2),
+                        depth=accum[:, 3, :], log_t=log_t[:, :, 0])
+
+
+def blend_stream_direct(
+    stream_t: torch.Tensor,     # (16, MR_AL+chunk) pre-assembled stream rows
+    tstart: torch.Tensor,       # (num_tiles,) int32 aligned tile starts
+    walk_counts: torch.Tensor,  # (num_tiles,) int32
+    kept_al: torch.Tensor,      # () int32 live aligned-stream length
+    grid_x: int,
+    tile_size: int,
+    chunk: int = 256,
+) -> TileBlendOut:
+    """Blend a pre-assembled pair stream; grads flow to the stream rows.
+
+    The stream's alignment must equal ``chunk`` (``bin_stream(align=chunk)``):
+    the backward writes whole chunks inside each tile's aligned window.
+    """
+    accum, log_t = _StreamBlend.apply(stream_t, tstart, walk_counts,
+                                      kept_al, grid_x, tile_size, chunk)
+    return _tile_out(accum, log_t)
+
+
+def assemble_stream(pack: torch.Tensor, gid_of_pos: torch.Tensor,
+                    chunk: int) -> torch.Tensor:
+    """(P, R) per-Gaussian rows, R <= 16 -> (16, MR_AL+chunk) stream, rows
+    R.. zero; the dead row P (zero params) is gated out of the blend."""
+    rows = pack.shape[1]
+    if rows > _RPAD:
+        raise ValueError(f"pack has {rows} rows, the stream holds {_RPAD}")
+    pack_pad = torch.cat([pack, pack.new_zeros((1, rows))], dim=0)
+    stream = pack_pad[gid_of_pos.long()]                  # (MR_AL, R)
+    mr_al = stream.shape[0]
+    stream_t = torch.cat([stream.T, pack.new_zeros((_RPAD - rows, mr_al))],
+                         dim=0)
+    return torch.cat([stream_t, pack.new_zeros((_RPAD, chunk))], dim=1)
+
+
+def blend_stream(
+    pack: torch.Tensor,        # (P, 12) per-Gaussian rows (original order)
+    sbins: StreamBins,
+    grid_x: int,
+    tile_size: int,
+    chunk: int = 256,
+) -> TileBlendOut:
+    """Counterpart of the JAX ``blend_stream_pallas``. Gradients reach
+    ``pack`` through PyTorch's adjoint of the gather in ``assemble_stream``
+    (the JAX slot-order reduction is a TPU device against scatters)."""
+    if sbins.align != chunk:
+        raise ValueError(f"stream aligned to {sbins.align}, blend chunk "
+                         f"{chunk}: the backward needs align == chunk")
+    stream_t = assemble_stream(pack, sbins.gid_of_pos, chunk)
+    return blend_stream_direct(stream_t, sbins.tstart, sbins.walk_counts,
+                               sbins.kept_al, grid_x, tile_size, chunk)

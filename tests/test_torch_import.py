@@ -1,0 +1,109 @@
+"""The PyTorch port stands alone: no JAX import, CPU-importable, and entry
+points that refuse to run without CUDA unless asked for the CPU."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import gs_localization_torch as gsl
+from gs_localization_torch.core.camera import Camera
+from gs_localization_torch.core.gaussians import GaussianParams
+from gs_localization_torch.pipelines.localize import (
+    LocalizePipelineConfig, build_mask)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gs_localization_tpu")
+PORT_FILES = sorted((ROOT / "gs_localization_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_covers_the_package():
+    names = {p.name for p in PORT_FILES}
+    assert {"stream_blend.py", "refine.py", "localize.py",
+            "chip_smoke.py"} <= names
+
+
+def test_imports_without_nvcc_or_triton(tmp_path):
+    """Every module imports in a fresh process whose PATH holds no nvcc,
+    and importing builds nothing and pulls in no triton."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import gs_localization_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'gs_localization_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from gs_localization_torch import _kernels\n"
+        "assert _kernels._LIB is None\n"
+        "assert 'triton' not in sys.modules\n"
+        "print('ok')\n")
+    env = dict(os.environ, PATH="/usr/bin:/bin", PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _arrays(n=4):
+    return {"xyz": np.zeros((n, 3)), "features_dc": np.zeros((n, 1, 3)),
+            "features_rest": np.zeros((n, 0, 3)), "scaling": np.zeros((n, 3)),
+            "rotation": np.tile([1.0, 0, 0, 0], (n, 1)),
+            "opacity": np.zeros((n, 1)), "live": np.ones(n, bool)}
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GaussianParams.from_numpy(_arrays(), 0, 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GaussianParams.empty(8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Camera.from_rt(np.eye(3), np.zeros(3), 50.0, 50.0, 32, 32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_mask(np.zeros((8, 8, 3)), LocalizePipelineConfig(), None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gsl.resolve_device()
+
+
+def test_cpu_on_request(no_cuda):
+    g = GaussianParams.from_numpy(_arrays(), 0, 0, device="cpu")
+    assert g.device.type == "cpu" and g.xyz.dtype == torch.float32
+    cam = Camera.from_rt(np.eye(3), np.zeros(3), 50.0, 50.0, 32, 32,
+                         device="cpu")
+    assert cam.w2c.device.type == "cpu"
+    mask = build_mask(np.zeros((8, 8, 3)), LocalizePipelineConfig(), None,
+                      device="cpu")
+    assert mask.device.type == "cpu" and mask.shape == (8, 8)
+    with pytest.raises(ValueError):
+        gsl.resolve_device("meta")
+
+
+def test_reset_launches():
+    gsl.LAUNCHES["stream_fwd"] += 3
+    gsl.reset_launches()
+    assert gsl.LAUNCHES == {"stream_fwd": 0, "stream_bwd": 0}
