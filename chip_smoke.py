@@ -6,21 +6,40 @@
 1. prints the environment (torch, CUDA, the card's name and power limit);
 2. builds the hand-written CUDA kernels from ``gs_localization_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the same inputs:
-   at the bench scene (640x480, 100k Gaussians at SH degree 3, fast_k=1,
-   chunk 256, max_pairs = max_render = 2^19) and at a small scene whose
-   tiles are all single-chunk, one of them empty;
+   K1/K2 (stream blend) at the bench scene (640x480, 100k Gaussians at SH
+   degree 3, fast_k=1, chunk 256, max_pairs = max_render = 2^19) and at a
+   small scene whose tiles are all single-chunk, one of them empty; K3/K4
+   (pregathered blend) on the same two scenes binned by ``bin_gaussians``
+   at ``max_per_tile`` = the probed max tile count rounded up to 256, and
+   at the shapes of the paths that run them: the training windows (the
+   initial and the trained map at the deepest training view, at the
+   training run's ``max_per_tile``) and a PairPack's windows;
 4. checks the CUDA path against the plain CPU path on the small scene
-   (images and the camera-tangent gradient);
-5. drives the main path: 4 perturbed queries through ``localize_queries``
-   in pose mode (50 iterations, lr 1e-3, rebin every 10), with the launch
-   counters set to 0 just before and read just after, and requires every
-   query's final pose error below its initial one;
-6. times each kernel at the bench shapes (median of 25 runs, CUDA events)
-   beside its plain version and its bound (this run's walked work over the
-   H100's fp32 and HBM peaks);
-7. splits a refinement iteration into the rebin and the render, loss and
-   backward, and profiles one 20-iteration refinement (torch.profiler: the
-   device's busy share and the device time by kernel).
+   (pose-mode images and the camera-tangent gradient, on the stream pack
+   and on the PairPack);
+5. localization path: 4 perturbed queries through ``localize_queries`` in
+   pose mode on the stream layout (K1/K2; 50 iterations, lr 1e-3, rebin
+   every 10), with the launch counters set to 0 just before and read just
+   after, and every query's final pose error below its initial one;
+6. layout cross-check at full width: ``rasterize`` + ``training_loss`` of a
+   ``from_pcd`` map on the stream layout (K1/K2) and on the pregathered
+   layout (K3/K4): images, losses and the gradients of every trainable
+   field and of ``means2d_offset``;
+7. training path: ``train_map`` for 300 iterations on ``use_stream=False``
+   (K3/K4) from ``from_pcd`` of the bench map's points, on 8 of 10 views
+   the bench map renders (colour and depth), 2 held out; densify rounds at
+   100, 200 and 300; loss, held-out PSNR, densify reports, the PLY
+   snapshot and the exact K3/K4 launch counts are checked;
+8. pose mode's PairPack: 2 perturbed queries through ``localize_queries``
+   on ``use_stream=False`` (K3/K4), 50 iterations each;
+9. times each kernel (median of 25 runs, CUDA events) beside its plain
+   version and its bound (this run's walked work: its bytes over the HBM
+   peak, its instructions over the H100's fp32 and special-function issue
+   rates): K1/K2 at the bench shapes, K3/K4 at the training windows (and,
+   beside K1/K2, at the bench windows);
+10. splits a refinement iteration and a training step into their parts and
+   profiles 20 of each (torch.profiler: the device's busy share and the
+   device time by kernel).
 
 Prints one JSON line of kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -29,11 +48,16 @@ line. Exits non-zero at once when there is no CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -45,31 +69,55 @@ CHUNK = 256
 N_QUERIES = 4
 N_ITERS = 50
 N_TIMED = 25
+N_VIEWS, N_TEST_VIEWS = 10, 2
+N_TRAIN = 300
+N_PAIR_QUERIES = 2
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
-PEAK_FP32 = 67e12     # FLOP/s on the CUDA cores
+PEAK_FP32 = 67e12     # FLOP/s on the CUDA cores, a fused multiply-add as 2
 PEAK_HBM = 3.35e12    # bytes/s
-# float operations per (pixel, pair), read off csrc/stream_blend.cu, with
-# exp and log counted as one operation each and compares not counted:
-# gate_of() on every walked slot (2 sub, 6 mul, 1 add, 1 mul, 1 sub, 1 min,
-# 1 exp, 1 mul); then, where the pair passes the gate, the forward's blend
-# (min, sub, log, add, exp, mul, 4 fma, add) and the backward's adjoint
-# (alpha, log, log T, exp, w, 4 fma for wbar, labar, abar, dpow, dopa, the
-# five geometry terms, 4 colour terms, the suffix fma). The warp reductions
-# of the backward are not counted, so the bound is a lower bound.
-OPS_GATE = 14
-OPS_FWD_IN = 15
-OPS_BWD_IN = 46
+# The blend is not made of multiply-add pairs, so its bound counts issued
+# instructions: fp32 ones (fma, mul, add, min alike) at half the FLOP rate,
+# and exp, log and reciprocal on the special-function units, which have 16
+# lanes per SM to the 128 fp32 lanes. The two pipes run side by side, so
+# the bound is the larger of the two times.
+FP32_ISSUE = PEAK_FP32 / 2       # fp32 instructions/s
+SFU_ISSUE = FP32_ISSUE / 8       # special-function instructions/s
+# Instructions per (pixel, pair), read off csrc/blend_common.cuh, as
+# (fp32, sfu). Each exp, log and division counts one sfu instruction and
+# nothing for its range reduction or refinement, and compares are not
+# counted, so the bound is a lower bound. gate_of() runs on every walked
+# slot (2 sub, 6 mul, add, mul, sub, min; exp; mul); where the pair passes
+# the gate, the forward's blend (min, sub, add, mul, 4 fma, add; log, exp)
+# and the backward's adjoint (min, 2 sub, mul, 4 fma, add, 3 for abar, 2
+# mul, 14 for the five geometry terms, 4 colour mul, the suffix fma, and
+# the 10 adds that fold the pair's gradients over the pixels; log, exp,
+# reciprocal). K1/K2 and K3/K4 share these walks.
+INS_GATE = (13, 1)
+INS_FWD_IN = (9, 2)
+INS_BWD_IN = (43, 3)
 
-# K1 vs plain: sums in another order (sequential vs cumsum) and the same
-# expf; K2 vs plain: analytic reverse walk vs autograd of the forward, with
-# log T rebuilt by subtraction.
+# forward kernel vs plain: sums in another order (sequential vs cumsum) and
+# the same expf; backward kernel vs plain: analytic reverse walk vs
+# autograd of the forward, with log T rebuilt by subtraction.
 TOL_FWD = (1e-4, 1e-4)    # accum (atol, rtol)
 TOL_LOGT = 1e-4           # log_t atol, on pixels no pair flips (below)
 EPS_BAND = 1e-4           # log T this close to LOG_T_EPS may flip a pair
 TOL_BWD = (5e-3, 1e-2)
+FLIP_BWD = 1e-4           # a flipped pixel's share of its row's gradients
 TOL_IMG = 1e-5            # CUDA vs CPU images, small scene
 TOL_GRAD = (1e-3, 1e-3)   # camera-tangent gradient (atol, rtol)
+# stream vs pregathered layout on one map: the same pairs in the same order
+# per tile; gradients reach the Gaussians through different gather
+# adjoints (index_put with atomics, in another order)
+TOL_LAYOUT_IMG = 3e-5
+TOL_LAYOUT_LOSS = 1e-5    # rtol
+TOL_LAYOUT_GRAD = (5e-3, 1e-2)   # on each field divided by its max |grad|
+TOL_PLY = 1e-5            # a map reloaded from its PLY renders the same
+
+ROOT = Path(__file__).resolve().parent
+TRAINABLE = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
+             "opacity")
 
 
 def fail(msg: str) -> None:
@@ -82,12 +130,24 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    print(f"== {name}")
+    yield
+    print(f"== {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def round_up(n: int, m: int) -> int:
+    return -(-int(n) // m) * m
 
 
 def bench_scene(device):
@@ -143,28 +203,28 @@ def close_err(a, b, atol: float, rtol: float):
     import torch
 
     d = torch.abs(a.double() - b.double())
+    if d.numel() == 0:
+        return 0.0, 0.0
     return float(d.max()), float((d / (atol + rtol * b.double().abs())).max())
 
 
-def compare_kernels(label, stream_t, pack, grid_x, seed):
-    """K1 and K2 against their plain versions on one stream; returns the max
-    abs errors and the walked work."""
+def check_forward(label, kname, out_k, out_p, rgbd_max: float) -> float:
+    """A forward kernel's (accum, log_t, resid) against its plain version's.
+
+    A pair whose inclusive log T lies within rounding of LOG_T_EPS is
+    applied by one summation order (sequential) and not by the other
+    (cumsum). That moves the pixel's log T by the pair's log(1 - alpha), its
+    T by at most 1e-4 * alpha and its accum by at most 1e-4 * alpha *
+    |rgbd|. Such "flipped" pixels (one of the two log T within EPS_BAND of
+    LOG_T_EPS) are counted and held to those bounds; every other pixel is
+    held to TOL_LOGT and TOL_FWD. Returns the max abs error, flipped pixels
+    included."""
     import torch
-    from gs_localization_torch.raster import stream_blend as sb
     from gs_localization_torch.raster.constants import LOG_T_EPS
 
-    args = (stream_t, pack.tstart, pack.walk_counts)
-    acc_k, logt_k, resid_k = sb.stream_blend_fwd_cuda(*args, grid_x, 16, CHUNK)
-    acc_p, logt_p, resid_p = sb.stream_blend_fwd_plain(*args, grid_x, 16,
-                                                       CHUNK)
+    acc_k, logt_k, resid_k = out_k
+    acc_p, logt_p, resid_p = out_p
     torch.cuda.synchronize()
-    # A pair whose inclusive log T lies within rounding of LOG_T_EPS is
-    # applied by one summation order (sequential) and not by the other
-    # (cumsum). That moves the pixel's log T by the pair's log(1 - alpha),
-    # its T by at most 1e-4 * alpha and its accum by at most 1e-4 * alpha *
-    # |rgbd|. Such "flipped" pixels (one of the two log T within EPS_BAND of
-    # LOG_T_EPS) are counted and held to those bounds; every other pixel is
-    # held to TOL_LOGT and TOL_FWD.
     d_lt = (logt_k - logt_p).abs()[..., 0]                  # (T, 256)
     near = torch.minimum((logt_k - LOG_T_EPS).abs(),
                          (logt_p - LOG_T_EPS).abs())[..., 0] <= EPS_BAND
@@ -176,12 +236,11 @@ def compare_kernels(label, stream_t, pack, grid_x, seed):
     d_acc = torch.abs(acc_k.double() - acc_p.double())
     lim_acc = TOL_FWD[0] + TOL_FWD[1] * acc_p.double().abs()
     n_acc = float(torch.where(flip[:, None, :], 0.0, d_acc / lim_acc).max())
-    rgbd_max = float(stream_t[8:12].abs().max())
     e_acc_flip = float(torch.where(flip[:, None, :], d_acc, 0.0).max())
     e_acc = float(d_acc.max())
     kstop_k, kstop_p = resid_k[:, 0, 1], resid_p[:, 0, 1]
     k_diff = int((kstop_k != kstop_p).sum())
-    print(f"[{label}] K1 vs plain: accum max|d| {e_acc:.3e} (tol atol "
+    print(f"[{label}] {kname} vs plain: accum max|d| {e_acc:.3e} (tol atol "
           f"{TOL_FWD[0]} rtol {TOL_FWD[1]}, max normalized {n_acc:.3f}); "
           f"log_t max|d| {e_lt:.3e} (tol atol {TOL_LOGT}) on all but "
           f"{n_flip} flipped pixels, whose T max|d| {e_t_flip:.3e} (tol "
@@ -189,30 +248,164 @@ def compare_kernels(label, stream_t, pack, grid_x, seed):
           f"{1e-4 * rgbd_max:.3e}); k_stop differs on {k_diff} tiles")
     check(n_acc <= 1 and e_lt <= TOL_LOGT and e_t_flip <= 1e-4
           and e_acc_flip <= 1e-4 * rgbd_max and k_diff == 0,
-          f"[{label}] K1 disagrees with its plain version")
-    e_fwd = max(e_acc, float(d_lt.max()))     # flipped pixels included
+          f"[{label}] {kname} disagrees with its plain version")
+    return max(e_acc, float(d_lt.max())), flip
 
-    # cotangents as a loss on the images gives them: random on accum, and
-    # on log_t through T = exp(log_t)
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    num_tiles = pack.tstart.shape[0]
-    gacc = torch.randn((num_tiles, 4, 256), generator=gen).cuda()
-    glogt = torch.randn((num_tiles, 256, 1), generator=gen).cuda() \
-        * torch.exp(logt_k)
-    d_k = sb.stream_blend_bwd_cuda(*args, gacc, glogt, resid_k, grid_x, 16,
-                                   CHUNK)
-    d_p = sb.stream_blend_bwd_plain(*args, gacc, glogt, grid_x, 16, CHUNK)
+
+def check_backward(label, kname, bwd, gacc, glogt, flip):
+    """A backward kernel against its plain version. ``bwd(gacc, glogt)``
+    gives [(kernel, plain), ...], one pair per output.
+
+    A flipped pixel (check_forward) applies a pair at T ~ 1e-4 in one walk
+    and not in the other, so its gradient terms differ by about 1e-4 of
+    their size. With the flipped pixels' cotangents zeroed, every element
+    is held to TOL_BWD; with the full cotangents, to TOL_BWD plus FLIP_BWD
+    times the largest |plain| of its row (of its tile, for K4). Returns the
+    full cotangents' max abs error and kernel outputs."""
+    import torch
+
+    n_flip = int(flip.sum())
+    full = bwd(gacc, glogt)
+    keep = (~flip).float()
+    strict = full if n_flip == 0 else bwd(gacc * keep[:, None, :],
+                                          glogt * keep[:, :, None])
     torch.cuda.synchronize()
-    e_d, n_d = close_err(d_k, d_p, *TOL_BWD)
-    print(f"[{label}] K2 vs plain: dstream max|d| {e_d:.3e} (tol atol "
-          f"{TOL_BWD[0]} rtol {TOL_BWD[1]}, max normalized {n_d:.3f})")
-    check(n_d <= 1, f"[{label}] K2 disagrees with its plain version")
-    check(bool(torch.isfinite(d_k).all()), f"[{label}] K2 not finite")
-    return e_fwd, e_d, (gacc, glogt, resid_k)
+    errs, n_strict, n_full = [], 0.0, 0.0
+    for (k, p), (k0, p0) in zip(full, strict):
+        n_strict = max(n_strict, close_err(k0, p0, *TOL_BWD)[1])
+        d = torch.abs(k.double() - p.double())
+        pa = p.double().abs()
+        lim = TOL_BWD[0] + TOL_BWD[1] * pa \
+            + FLIP_BWD * pa.amax(dim=-1, keepdim=True)
+        errs.append(float(d.max()))
+        n_full = max(n_full, float((d / lim).max()))
+    print(f"[{label}] {kname} vs plain: max|d| "
+          f"{', '.join(f'{e:.3e}' for e in errs)} (full cotangents); max "
+          f"normalized {n_strict:.3f} with the {n_flip} flipped pixels' "
+          f"cotangents zeroed (tol atol {TOL_BWD[0]} rtol {TOL_BWD[1]}), "
+          f"{n_full:.3f} with them (+ {FLIP_BWD} x row max)")
+    check(n_strict <= 1 and n_full <= 1,
+          f"[{label}] {kname} disagrees with its plain version")
+    check(all(bool(torch.isfinite(k).all()) for k, _ in full),
+          f"[{label}] {kname} not finite")
+    return max(errs), [k for k, _ in full]
+
+
+def cotangents(acc_k, logt_k, seed: int):
+    """What a loss on the images gives: random on accum, and on log_t
+    through T = exp(log_t)."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    gacc = torch.randn(acc_k.shape, generator=gen).cuda()
+    glogt = torch.randn(logt_k.shape, generator=gen).cuda() * torch.exp(logt_k)
+    return gacc, glogt
+
+
+def compare_kernels(label, stream_t, pack, grid_x, seed):
+    """K1 and K2 against their plain versions on one stream; returns the max
+    abs errors and the backward's inputs."""
+    from gs_localization_torch.raster import stream_blend as sb
+
+    args = (stream_t, pack.tstart, pack.walk_counts)
+    out_k = sb.stream_blend_fwd_cuda(*args, grid_x, 16, CHUNK)
+    out_p = sb.stream_blend_fwd_plain(*args, grid_x, 16, CHUNK)
+    e_fwd, flip = check_forward(label, "K1", out_k, out_p,
+                                float(stream_t[8:12].abs().max()))
+    gacc, glogt = cotangents(out_k[0], out_k[1], seed)
+    e_d, _ = check_backward(label, "K2 (dstream)", lambda ga, gl: [(
+        sb.stream_blend_bwd_cuda(*args, ga, gl, out_k[2], grid_x, 16, CHUNK),
+        sb.stream_blend_bwd_plain(*args, ga, gl, grid_x, 16, CHUNK))],
+        gacc, glogt, flip)
+    return e_fwd, e_d, (gacc, glogt, out_k[2])
+
+
+def pregathered_inputs(g, cam, cfg):
+    """The training path's K3 inputs: bin_gaussians at cfg, then the
+    packed gather of blend_tiles_pallas."""
+    import torch
+    from gs_localization_torch.raster.pallas_blend import gather_windows
+    from gs_localization_torch.raster.preprocess import preprocess
+    from gs_localization_torch.raster.rasterize import bin_gaussians_for
+
+    with torch.no_grad():
+        prep = preprocess(g, cam, tile_size=16)
+        bins = bin_gaussians_for(prep, cam, cfg)
+        geom, rgbd = gather_windows(bins.tile_gid, prep.means2d, prep.conic,
+                                    prep.rgb, prep.opacity, prep.depths)
+    return bins, geom, rgbd
+
+
+def compare_pregathered(label, counts, geom, rgbd, grid_x, seed):
+    """K3 and K4 against their plain versions on one set of windows, and
+    K4's lanes past each count exactly 0; returns the max abs errors and
+    the backward's inputs."""
+    import torch
+    from gs_localization_torch.raster import pallas_blend as pb
+
+    chunk = min(CHUNK, geom.shape[2])
+    args = (counts, geom, rgbd)
+    out_k = pb.pregathered_blend_fwd_cuda(*args, grid_x, 16, chunk)
+    out_p = pb.pregathered_blend_fwd_plain(*args, grid_x, 16, chunk)
+    e_fwd, flip = check_forward(label, "K3", out_k, out_p,
+                                float(rgbd.abs().max()))
+    gacc, glogt = cotangents(out_k[0], out_k[1], seed)
+    e_bwd, dk = check_backward(label, "K4 (dgeom, drgbd)", lambda ga, gl: list(
+        zip(pb.pregathered_blend_bwd_cuda(*args, ga, gl, out_k[2], grid_x, 16,
+                                          chunk),
+            pb.pregathered_blend_bwd_plain(*args, ga, gl, grid_x, 16, chunk))),
+        gacc, glogt, flip)
+    past = (torch.arange(geom.shape[2], device=geom.device)[None, :]
+            >= counts[:, None].long())
+    n_past = int(past.sum())
+    nz_past = sum(int((d.transpose(0, 1)[:, past] != 0).sum()) for d in dk)
+    print(f"[{label}] K4: {nz_past} nonzero of {n_past} lanes past the "
+          f"counts (must be 0)")
+    check(nz_past == 0 and int((dk[0][:, 6:] != 0).sum()) == 0,
+          f"[{label}] K4 wrote lanes past the count or the valid/pad rows")
+    return e_fwd, e_bwd, (gacc, glogt, out_k[2])
+
+
+def gated_products(windows, walked, grid_x: int, chunk: int) -> int:
+    """(pixel, pair) products that pass the gate over the walked lanes;
+    ``windows(lo, hi)`` gives the (12+, B, K*chunk) rows of tiles lo..hi."""
+    import torch
+    from gs_localization_torch.raster import stream_blend as sb
+
+    num_tiles = walked.shape[0]
+    tiles = torch.arange(num_tiles, device=walked.device)
+    lanes = torch.arange(chunk, device=walked.device)
+    gated = 0
+    with torch.no_grad():
+        for lo, hi in sb._blocks(num_tiles, 256, chunk):
+            win = windows(lo, hi)
+            px, py = sb._pixel_coords(tiles[lo:hi], grid_x, 16)
+            for k in range(win.shape[2] // chunk):
+                lane_ok = (k * chunk + lanes)[None, :] < walked[lo:hi, None]
+                alpha = sb._chunk_alpha(win[:, :, k * chunk:(k + 1) * chunk],
+                                        px, py, lane_ok)
+                gated += int((alpha > 0).sum())
+    return gated
+
+
+def work_of(chunks: int, slots: int, gated: int, fwd_bytes: int,
+            bwd_bytes: int) -> dict:
+    """The walked work and each kernel's least time for it: bytes over the
+    HBM rate, instructions over their issue rates (seconds)."""
+    def ins(inner):
+        return tuple(slots * 256 * g + gated * i
+                     for g, i in zip(INS_GATE, inner))
+
+    fwd_ins, bwd_ins = ins(INS_FWD_IN), ins(INS_BWD_IN)
+    return dict(chunks=chunks, slots=slots, gated=gated,
+                fwd_ins=fwd_ins, bwd_ins=bwd_ins,
+                fwd_bytes=fwd_bytes, bwd_bytes=bwd_bytes,
+                fwd_ops_s=max(fwd_ins[0] / FP32_ISSUE, fwd_ins[1] / SFU_ISSUE),
+                bwd_ops_s=max(bwd_ins[0] / FP32_ISSUE, bwd_ins[1] / SFU_ISSUE))
 
 
 def walked_work(stream_t, pack, resid, grid_x: int):
-    """What this run's data makes the kernels do: walked chunks, walked pair
+    """What this run's data makes K1/K2 do: walked chunks, walked pair
     slots, (pixel, pair) products that pass the gate, and the bytes each
     kernel must move (each input read once, each output written once)."""
     import torch
@@ -223,30 +416,38 @@ def walked_work(stream_t, pack, resid, grid_x: int):
     start, count = sb._window(pack.tstart, pack.walk_counts,
                               stream_t.shape[1], CHUNK)
     walked = torch.minimum(count, k_stop * CHUNK)
-    tiles = torch.arange(num_tiles, device=stream_t.device)
-    lanes = torch.arange(CHUNK, device=stream_t.device)
-    gated = 0
-    with torch.no_grad():
-        for lo, hi in sb._blocks(num_tiles, 256, CHUNK):
-            win, _ = sb._gather_windows(stream_t, start[lo:hi],
-                                        walked[lo:hi], CHUNK)
-            px, py = sb._pixel_coords(tiles[lo:hi], grid_x, 16)
-            for k in range(win.shape[2] // CHUNK):
-                lane_ok = (k * CHUNK + lanes)[None, :] < walked[lo:hi, None]
-                alpha = sb._chunk_alpha(win[:, :, k * CHUNK:(k + 1) * CHUNK],
-                                        px, py, lane_ok)
-                gated += int((alpha > 0).sum())
-    chunks = int(k_stop.sum())
+    gated = gated_products(
+        lambda lo, hi: sb._gather_windows(stream_t, start[lo:hi],
+                                          walked[lo:hi], CHUNK)[0],
+        walked, grid_x, CHUNK)
     slots = int(walked.sum())
     stream_read = slots * 12 * 4
     tile_io = num_tiles * 256 * 7 * 4          # accum + log_t + resid
-    fwd_bytes = stream_read + num_tiles * 8 + tile_io
-    bwd_bytes = stream_read + num_tiles * 8 + tile_io \
-        + 16 * stream_t.shape[1] * 4
-    return dict(chunks=chunks, slots=slots, gated=gated,
-                fwd_ops=slots * 256 * OPS_GATE + gated * OPS_FWD_IN,
-                bwd_ops=slots * 256 * OPS_GATE + gated * OPS_BWD_IN,
-                fwd_bytes=fwd_bytes, bwd_bytes=bwd_bytes)
+    return work_of(int(k_stop.sum()), slots, gated,
+                   stream_read + num_tiles * 8 + tile_io,
+                   stream_read + num_tiles * 8 + tile_io
+                   + 16 * stream_t.shape[1] * 4)
+
+
+def pregathered_work(counts, geom, rgbd, resid, grid_x: int):
+    """What this run's data makes K3/K4 do, as walked_work: walked slots =
+    sum over tiles of min(count, k_stop * chunk); K4's bytes include its
+    whole (T, 12, cap) output."""
+    import torch
+
+    num_tiles, _, cap = geom.shape
+    chunk = min(CHUNK, cap)
+    k_stop = resid[:, 0, 1].long()
+    walked = torch.minimum(torch.clamp(counts.long(), 0, cap), k_stop * chunk)
+    gated = gated_products(
+        lambda lo, hi: torch.cat([geom[lo:hi], rgbd[lo:hi]],
+                                 dim=1).transpose(0, 1),
+        walked, grid_x, chunk)
+    slots = int(walked.sum())
+    tile_io = num_tiles * 256 * 7 * 4          # accum + log_t + resid
+    read = slots * 12 * 4 + num_tiles * 4
+    return work_of(int(k_stop.sum()), slots, gated, read + tile_io,
+                   read + tile_io + num_tiles * 12 * cap * 4)
 
 
 def time_ms(fn, n: int = N_TIMED) -> float:
@@ -267,26 +468,27 @@ def time_ms(fn, n: int = N_TIMED) -> float:
     return statistics.median(times)
 
 
-def profile_refine(refine) -> None:
-    """One refinement under torch.profiler: the device's busy share of the
-    wall time and the device time by kernel name."""
+def profile(label: str, fn, n_steps: int) -> None:
+    """``fn`` (``n_steps`` steps) under torch.profiler: the device's busy
+    share of the wall time, the device time by kernel name, and the share
+    of the hand-written kernels."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    refine()
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        iters = refine().num_iters
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
-        print("profile: the profiler saw no device activity; device busy "
-              "share not measured")
+        print(f"profile {label}: the profiler saw no device activity; "
+              "device busy share not measured")
         return
     busy, (lo, hi) = 0.0, spans[0]
     for s, e in spans[1:]:
@@ -301,11 +503,70 @@ def profile_refine(refine) -> None:
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.end - e.time_range.start,
                                n + 1)
-    print(f"profile ({iters} iterations, under the profiler): wall "
+    hand = sum(us for name, (us, _) in by_name.items()
+               if "stream_fwd_kernel" in name or "stream_bwd_kernel" in name
+               or "pregathered_" in name)
+    total = sum(us for us, _ in by_name.values())
+    print(f"profile {label} ({n_steps} steps, under the profiler): wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
-          f"({100 * busy / wall_us:.1f}%), {len(spans)} device activities")
+          f"({100 * busy / wall_us:.1f}%), {len(spans)} device activities; "
+          f"hand-written kernels {hand / 1e3:.3f} ms of {total / 1e3:.3f} ms "
+          f"device time ({100 * hand / max(total, 1e-9):.1f}%)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"profile:   {us / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
+        print(f"profile {label}:   {us / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
+
+
+def perturbed(cam, rng, rot: float, trans: float):
+    """cam moved by a tangent of the given rotation (rad) and translation
+    (m) magnitudes in random directions."""
+    import torch
+
+    def unit():
+        v = rng.standard_normal(3)
+        return v / np.linalg.norm(v)
+
+    tau = np.concatenate([trans * unit(), rot * unit()])
+    return cam.with_delta(torch.tensor(tau, dtype=torch.float32,
+                                       device=cam.device))
+
+
+def localize_checked(label, g, queries, init, gt_w2c, pcfg, cfg):
+    """localize_queries with the launch counters set to 0 just before and
+    read just after; every query's error must fall. Returns (launches,
+    ms/iteration, logs)."""
+    import torch
+    import gs_localization_torch as gsl
+    from gs_localization_torch.pipelines.localize import localize_queries
+    from gs_localization_torch.sfm.evaluate import pose_errors
+
+    logs = []
+    torch.cuda.synchronize()
+    gsl.reset_launches()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    results, metrics = localize_queries(g, queries, pcfg, cfg,
+                                        log_fn=logs.append)
+    ev1.record()
+    ev1.synchronize()
+    launches = dict(gsl.LAUNCHES)
+    iters = len(queries) * pcfg.tracking.num_iters
+    for line in logs:
+        print(f"{label}: {line}")
+    for q, (e0t, e0r) in zip(queries, init):
+        w = results[q.name]
+        check(np.isfinite(w).all(), f"{label} {q.name}: non-finite pose")
+        e1t, e1r = pose_errors(w[:3, :3], w[:3, 3], gt_w2c[:3, :3],
+                               gt_w2c[:3, 3])
+        print(f"{label} {q.name}: trans {e0t * 100:.3f} -> {e1t * 100:.3f} "
+              f"cm, rot {e0r:.4f} -> {e1r:.4f} deg")
+        check(e1t < e0t and e1r < e0r,
+              f"{label} {q.name}: error did not decrease")
+    ms = ev0.elapsed_time(ev1) / iters
+    print(f"{label}: {iters} iterations, {ms:.3f} ms/iteration (CUDA events "
+          f"around localize_queries); metrics {metrics}")
+    print(f"{label} launches: {launches}")
+    return launches, ms, logs
 
 
 def main() -> None:
@@ -319,15 +580,26 @@ def main() -> None:
 
     import gs_localization_torch as gsl
     from gs_localization_torch import _kernels
+    from gs_localization_torch.core import sh as sh_lib
     from gs_localization_torch.core.camera import Camera
+    from gs_localization_torch.core.gaussians import GaussianParams
+    from gs_localization_torch.data.scene import (
+        CameraInfo, SceneInfo, compute_scene_extent)
     from gs_localization_torch.loc import (
         TrackingConfig, refine_pose, tracking_loss)
+    from gs_localization_torch.mapping import losses as mlosses
+    from gs_localization_torch.mapping import train as mtrain
     from gs_localization_torch.pipelines.localize import (
-        LocalizePipelineConfig, QuerySpec, localize_queries)
+        LocalizePipelineConfig, QuerySpec, load_map)
+    from gs_localization_torch.pipelines.train_map import (
+        TrainPipelineConfig, train_map)
     from gs_localization_torch.raster import RasterizerConfig, rasterize
+    from gs_localization_torch.raster import pallas_blend as pb
     from gs_localization_torch.raster import stream_blend as sb
     from gs_localization_torch.raster.pose_mode import (
-        _project_stream, build_stream_pair_pack, render_pose_mode)
+        _project_pairs, _project_stream, build_pair_pack,
+        build_stream_pair_pack, render_pose_mode)
+    from gs_localization_torch.raster.rasterize import compute_bins
     from gs_localization_torch.sfm.evaluate import pose_errors
 
     t_start = time.perf_counter()
@@ -337,171 +609,473 @@ def main() -> None:
           f"CUDA {torch.version.cuda}, device {kind}")
     print(f"nvidia-smi: {smi}")
 
-    # ---- build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    built = _kernels.build()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s "
-          f"({'cached' if built is None else 'nvcc'})")
+    with phase("build"):
+        t0 = time.perf_counter()
+        built = _kernels.build()
+        print(f"kernel build: {time.perf_counter() - t0:.1f} s "
+              f"({'cached' if built is None else 'nvcc'}) from "
+              f"{[s.name for s in _kernels.sources()]}")
 
     cfg = RasterizerConfig(max_pairs=MAX_PAIRS, max_per_tile=1024,
                            max_render=MAX_RENDER, fast_k=1,
                            pallas_chunk=CHUNK)
     dev = torch.device("cuda")
-
-    # ---- kernels vs plain, bench scene ---------------------------------
+    grid_x = -(-W // 16)
     g = bench_scene(dev)
     cam = Camera.from_rt(np.eye(3), np.zeros(3), 520.0, 520.0, W, H,
                          device=dev)
-    grid_x = -(-W // 16)
-    pack = build_stream_pair_pack(g, cam, cfg)
-    check(not bool(pack.overflow), "bench pack overflow")
-    with torch.no_grad():
-        stream_t = _project_stream(pack.params, cam)
-    print(f"bench stream: {tuple(stream_t.shape)}, kept_al "
-          f"{int(pack.kept_al)}, tiles {pack.tstart.shape[0]}, max walk "
-          f"{int(pack.walk_counts.max())}")
-    err_fwd, err_bwd, (gacc, glogt, resid) = compare_kernels(
-        "bench", stream_t, pack, grid_x, seed=0)
-
-    # ---- kernels vs plain, small single-chunk scene --------------------
     gs = small_scene(dev)
     cam_s = Camera.from_rt(np.eye(3), np.zeros(3), 60.0, 60.0, 96, 64,
                            device=dev)
     cfg_s = cfg.replace(max_pairs=1 << 14, max_render=1 << 14)
-    pack_s = build_stream_pair_pack(gs, cam_s, cfg_s)
-    counts_s = pack_s.walk_counts
-    print(f"small stream: max walk {int(counts_s.max())}, empty tiles "
-          f"{int((counts_s == 0).sum())}")
-    check(int(counts_s.max()) <= CHUNK and int((counts_s == 0).sum()) > 0,
-          "small scene is not single-chunk with an empty tile")
-    with torch.no_grad():
-        stream_s = _project_stream(pack_s.params, cam_s)
-    e1, e2, _ = compare_kernels("small", stream_s, pack_s, -(-96 // 16),
-                                seed=1)
-    err_fwd, err_bwd = max(err_fwd, e1), max(err_bwd, e2)
 
-    # ---- CUDA path vs CPU path, small scene -----------------------------
-    gs_cpu = gs.replace(**{f: getattr(gs, f).cpu() for f in
-                           ("xyz", "features_dc", "features_rest", "scaling",
-                            "rotation", "opacity", "live")})
-    cam_cpu = cam_s.replace(w2c=cam_s.w2c.cpu(), fx=cam_s.fx.cpu(),
-                            fy=cam_s.fy.cpu(), cx=cam_s.cx.cpu(),
-                            cy=cam_s.cy.cpu())
-    grads = []
-    for gg, cc in ((gs, cam_s), (gs_cpu, cam_cpu)):
-        pk = build_stream_pair_pack(gg, cc, cfg_s)
-        tau = torch.zeros(6, device=cc.device, requires_grad=True)
-        c, d, a = render_pose_mode(pk, cc.with_delta(tau), cfg_s)
-        (c.sum() + 0.1 * d.sum() + 0.01 * a.sum()).backward()
-        grads.append((c.detach().cpu(), d.detach().cpu(), a.detach().cpu(),
-                      tau.grad.cpu()))
-    (c1, d1, a1, t1), (c2, d2, a2, t2) = grads
-    img_err = max(float((c1 - c2).abs().max()), float((d1 - d2).abs().max()),
-                  float((a1 - a2).abs().max()))
-    _, n_grad = close_err(t1, t2, *TOL_GRAD)
-    print(f"small scene CUDA vs CPU: images max|d| {img_err:.3e} (tol "
-          f"{TOL_IMG}); tangent grad max normalized {n_grad:.3f}")
-    check(img_err <= TOL_IMG and n_grad <= 1,
-          "CUDA path disagrees with the CPU path")
-    check(all(bool(torch.isfinite(x).all()) for x in (c1, d1, a1, t1)),
-          "non-finite render")
+    # ---- K1/K2 vs plain --------------------------------------------------
+    with phase("K1/K2 vs plain"):
+        pack = build_stream_pair_pack(g, cam, cfg)
+        check(not bool(pack.overflow), "bench pack overflow")
+        with torch.no_grad():
+            stream_t = _project_stream(pack.params, cam)
+        print(f"bench stream: {tuple(stream_t.shape)}, kept_al "
+              f"{int(pack.kept_al)}, tiles {pack.tstart.shape[0]}, max walk "
+              f"{int(pack.walk_counts.max())}")
+        err_k1, err_k2, (gacc, glogt, resid) = compare_kernels(
+            "bench", stream_t, pack, grid_x, seed=0)
+        pack_s = build_stream_pair_pack(gs, cam_s, cfg_s)
+        counts_s = pack_s.walk_counts
+        print(f"small stream: max walk {int(counts_s.max())}, empty tiles "
+              f"{int((counts_s == 0).sum())}")
+        check(int(counts_s.max()) <= CHUNK and int((counts_s == 0).sum()) > 0,
+              "small scene is not single-chunk with an empty tile")
+        with torch.no_grad():
+            stream_s = _project_stream(pack_s.params, cam_s)
+        e1, e2, _ = compare_kernels("small", stream_s, pack_s, -(-96 // 16),
+                                    seed=1)
+        err_k1, err_k2 = max(err_k1, e1), max(err_k2, e2)
 
-    # ---- main path: localize 4 perturbed queries ------------------------
-    with torch.no_grad():
-        gt = rasterize(g, cam, cfg)
-    gt_img = gt.color.cpu().numpy()
-    gt_dep = gt.depth.cpu().numpy()
-    check(gt_img.shape == (H, W, 3) and np.isfinite(gt_img).all(),
-          "bad ground-truth render")
-    rng = np.random.default_rng(7)
-    gt_w2c = cam.w2c.cpu().numpy()
-    queries, init = [], []
-    for q in range(N_QUERIES):
-        tau = rng.uniform(0.01, 0.02, 6) * rng.choice([-1.0, 1.0], 6)
-        cam_q = cam.with_delta(torch.tensor(tau, dtype=torch.float32,
-                                            device=dev))
-        w = cam_q.w2c.cpu().numpy()
-        init.append(pose_errors(w[:3, :3], w[:3, 3], gt_w2c[:3, :3],
-                                gt_w2c[:3, 3]))
-        queries.append(QuerySpec(name=f"q{q}", camera=cam_q, image=gt_img,
-                                 depth=gt_dep, gt_w2c=gt_w2c))
-    # convergence=0: every query runs all N_ITERS iterations, so the launch
-    # counts must equal N_QUERIES * N_ITERS exactly
-    tcfg = TrackingConfig(num_iters=N_ITERS, lr=1e-3, rebin_every=10,
-                          pose_mode=True, convergence=0.0)
-    pcfg = LocalizePipelineConfig(batch_size=N_QUERIES, tracking=tcfg)
-    logs = []
-    torch.cuda.synchronize()
-    gsl.reset_launches()
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    results, metrics = localize_queries(g, queries, pcfg, cfg,
-                                        log_fn=logs.append)
-    ev1.record()
-    ev1.synchronize()
-    launches = dict(gsl.LAUNCHES)
-    iters = N_QUERIES * N_ITERS
-    ms_iter = ev0.elapsed_time(ev1) / iters
-    for line in logs:
-        print(f"localize: {line}")
-    for q, (e0t, e0r) in zip(queries, init):
-        w = results[q.name]
-        check(np.isfinite(w).all(), f"{q.name}: non-finite pose")
-        e1t, e1r = pose_errors(w[:3, :3], w[:3, 3], gt_w2c[:3, :3],
-                               gt_w2c[:3, 3])
-        print(f"{q.name}: trans {e0t * 100:.3f} -> {e1t * 100:.3f} cm, "
-              f"rot {e0r:.4f} -> {e1r:.4f} deg")
-        check(e1t < e0t and e1r < e0r, f"{q.name}: error did not decrease")
-    print(f"refinement: {iters} iterations, {ms_iter:.3f} ms/iteration "
-          f"(CUDA events around localize_queries); metrics {metrics}")
-    print(f"main-path launches: {launches}")
-    check(launches["stream_fwd"] == iters and launches["stream_bwd"] == iters,
-          f"launch counts {launches} != {iters} iterations")
+    # ---- K3/K4 vs plain --------------------------------------------------
+    with phase("K3/K4 vs plain"):
+        probe = compute_bins(g, cam, cfg.replace(use_stream=False,
+                                                 max_per_tile=4096))
+        mtc_bench = int(probe.max_tile_count)
+        cap_bench = max(256, round_up(mtc_bench, 256))
+        cfg_pre = cfg.replace(use_stream=False, max_per_tile=cap_bench)
+        bins_b, geom_b, rgbd_b = pregathered_inputs(g, cam, cfg_pre)
+        check(not bool(bins_b.overflow) and not bool(bins_b.tile_overflow),
+              "bench bin_gaussians overflow")
+        print(f"bench windows: max_tile_count {mtc_bench} -> max_per_tile "
+              f"{cap_bench}, geom {tuple(geom_b.shape)}, {int(probe.num_rendered)}"
+              f" pairs emitted")
+        err_k3, err_k4, (gacc3, glogt3, resid3) = compare_pregathered(
+            "bench", bins_b.tile_counts, geom_b, rgbd_b, grid_x, seed=2)
+        bins_sm, geom_sm, rgbd_sm = pregathered_inputs(
+            gs, cam_s, cfg_s.replace(use_stream=False, max_per_tile=256))
+        c_sm = bins_sm.tile_counts
+        print(f"small windows: max count {int(c_sm.max())}, empty tiles "
+              f"{int((c_sm == 0).sum())}, geom {tuple(geom_sm.shape)}")
+        check(int(c_sm.max()) <= CHUNK and int((c_sm == 0).sum()) > 0,
+              "small windows are not single-chunk with an empty tile")
+        e3, e4, _ = compare_pregathered("small", c_sm, geom_sm, rgbd_sm,
+                                        -(-96 // 16), seed=3)
+        err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
 
-    # ---- timing at the bench shapes --------------------------------------
-    args = (stream_t, pack.tstart, pack.walk_counts)
-    k1_ms = time_ms(lambda: sb.stream_blend_fwd_cuda(*args, grid_x, 16, CHUNK))
-    k1p_ms = time_ms(lambda: sb.stream_blend_fwd_plain(*args, grid_x, 16,
-                                                       CHUNK))
-    k2_ms = time_ms(lambda: sb.stream_blend_bwd_cuda(
-        *args, gacc, glogt, resid, grid_x, 16, CHUNK))
-    k2p_ms = time_ms(lambda: sb.stream_blend_bwd_plain(
-        *args, gacc, glogt, grid_x, 16, CHUNK))
-    work = walked_work(stream_t, pack, resid, grid_x)
-    print(f"walked: {work['chunks']} chunks, {work['slots']} pair slots x "
-          f"256 pixels, {work['gated']} (pixel, pair) products pass the "
-          f"gate; K1 {k1_ms:.4f} ms (plain {k1p_ms:.3f}), K2 {k2_ms:.4f} ms "
-          f"(plain {k2p_ms:.3f})")
+    # ---- CUDA path vs CPU path, small scene, both layouts ----------------
+    with phase("CUDA vs CPU"):
+        gs_cpu = gs.replace(**{f: getattr(gs, f).cpu() for f in
+                               TRAINABLE + ("live",)})
+        cam_cpu = cam_s.replace(w2c=cam_s.w2c.cpu(), fx=cam_s.fx.cpu(),
+                                fy=cam_s.fy.cpu(), cx=cam_s.cx.cpu(),
+                                cy=cam_s.cy.cpu())
+        for layout, build, c in (
+                ("stream pack", build_stream_pair_pack, cfg_s),
+                ("PairPack", build_pair_pack,
+                 cfg_s.replace(use_stream=False, max_per_tile=256))):
+            grads = []
+            for gg, cc in ((gs, cam_s), (gs_cpu, cam_cpu)):
+                pk = build(gg, cc, c)
+                tau = torch.zeros(6, device=cc.device, requires_grad=True)
+                cl, dp, al = render_pose_mode(pk, cc.with_delta(tau), c)
+                (cl.sum() + 0.1 * dp.sum() + 0.01 * al.sum()).backward()
+                grads.append((cl.detach().cpu(), dp.detach().cpu(),
+                              al.detach().cpu(), tau.grad.cpu()))
+            (c1, d1, a1, t1), (c2, d2, a2, t2) = grads
+            img_err = max(float((c1 - c2).abs().max()),
+                          float((d1 - d2).abs().max()),
+                          float((a1 - a2).abs().max()))
+            _, n_grad = close_err(t1, t2, *TOL_GRAD)
+            print(f"small scene CUDA vs CPU ({layout}): images max|d| "
+                  f"{img_err:.3e} (tol {TOL_IMG}); tangent grad max "
+                  f"normalized {n_grad:.3f}")
+            check(img_err <= TOL_IMG and n_grad <= 1,
+                  f"CUDA path disagrees with the CPU path ({layout})")
+            check(all(bool(torch.isfinite(x).all()) for x in (c1, d1, a1, t1)),
+                  "non-finite render")
 
-    # ---- where a refinement iteration's time goes ------------------------
-    q0 = queries[0]
-    img0 = torch.tensor(q0.image, device=dev)
-    dep0 = torch.tensor(q0.depth, device=dev)
-    mask0 = torch.ones(img0.shape[:2], dtype=torch.bool, device=dev)
-    rebin_ms = time_ms(lambda: build_stream_pair_pack(g, q0.camera, cfg), 5)
-    pack0 = build_stream_pair_pack(g, q0.camera, cfg)
+    # ---- localization path: 4 perturbed queries, stream layout ------------
+    with phase("localization (stream, K1/K2)"):
+        with torch.no_grad():
+            gt = rasterize(g, cam, cfg)
+        gt_img = gt.color.cpu().numpy()
+        gt_dep = gt.depth.cpu().numpy()
+        check(gt_img.shape == (H, W, 3) and np.isfinite(gt_img).all(),
+              "bad ground-truth render")
+        rng = np.random.default_rng(7)
+        gt_w2c = cam.w2c.cpu().numpy()
+        queries, init = [], []
+        for q in range(N_QUERIES):
+            tau = rng.uniform(0.01, 0.02, 6) * rng.choice([-1.0, 1.0], 6)
+            cam_q = cam.with_delta(torch.tensor(tau, dtype=torch.float32,
+                                                device=dev))
+            w = cam_q.w2c.cpu().numpy()
+            init.append(pose_errors(w[:3, :3], w[:3, 3], gt_w2c[:3, :3],
+                                    gt_w2c[:3, 3]))
+            queries.append(QuerySpec(name=f"q{q}", camera=cam_q, image=gt_img,
+                                     depth=gt_dep, gt_w2c=gt_w2c))
+        # convergence=0: every query runs all N_ITERS iterations, so the
+        # launch counts must equal the iterations exactly
+        tcfg = TrackingConfig(num_iters=N_ITERS, lr=1e-3, rebin_every=10,
+                              pose_mode=True, convergence=0.0)
+        launches_loc, ms_iter, _ = localize_checked(
+            "localize", g, queries, init, gt_w2c,
+            LocalizePipelineConfig(batch_size=N_QUERIES, tracking=tcfg), cfg)
+        iters = N_QUERIES * N_ITERS
+        check(launches_loc["stream_fwd"] == iters
+              and launches_loc["stream_bwd"] == iters
+              and launches_loc["pregathered_fwd"] == 0
+              and launches_loc["pregathered_bwd"] == 0,
+              f"launch counts {launches_loc} != {iters} iterations")
 
-    def one_step():
-        tau = torch.zeros(6, device=dev, requires_grad=True)
-        ab = torch.zeros(2, device=dev, requires_grad=True)
-        c, d, a = render_pose_mode(pack0, q0.camera.with_delta(tau), cfg)
-        loss = tracking_loss(c, d, a, ab, img0, mask0, tcfg, gt_depth=dep0)
-        torch.autograd.grad(loss, (tau, ab))
+    # ---- training scene: 10 views of the bench map --------------------------
+    with phase("training scene"):
+        rng_v = np.random.default_rng(11)
+        views = [cam] + [perturbed(cam, rng_v, 0.03, 0.1)
+                         for _ in range(N_VIEWS - 1)]
+        imgs, deps = [], []
+        with torch.no_grad():
+            for v in views:
+                r = rasterize(g, v, cfg)
+                check(not bool(r.overflow) and not bool(r.tile_overflow),
+                      "view render overflow")
+                imgs.append(r.color.cpu().numpy())
+                deps.append(r.depth.cpu().numpy())
+        infos = [CameraInfo(uid=i, name=f"view{i}", camera=v)
+                 for i, v in enumerate(views)]
+        centres = np.stack([v.campos.cpu().numpy() for v in views])
+        points = g.xyz.cpu().numpy()
+        colors = np.clip(sh_lib.sh_dc_to_rgb(
+            g.features_dc[:, 0].cpu().numpy()), 0.0, 1.0)
+        scene = SceneInfo(train_cameras=infos[:N_VIEWS - N_TEST_VIEWS],
+                          test_cameras=infos[N_VIEWS - N_TEST_VIEWS:],
+                          points=points, colors=colors,
+                          extent=compute_scene_extent(centres))
+        pipe = TrainPipelineConfig(
+            iterations=N_TRAIN, densify_from=50, densification_interval=100,
+            densify_until=N_TRAIN + 1, sh_up_interval=100,
+            test_iterations=(N_TRAIN,), save_iterations=(N_TRAIN,),
+            log_every=50)
+        # the map train_map starts from, and the capacities it needs: a
+        # probe over the training views, x1.5 headroom
+        g0 = GaussianParams.from_pcd(
+            points, colors, sh_degree=pipe.sh_degree,
+            capacity=max(int(len(points) * pipe.capacity_multiplier), 1024),
+            device=dev)
+        probe_cfg = RasterizerConfig(max_pairs=1 << 23, max_per_tile=256,
+                                     pallas_chunk=CHUNK, use_stream=False)
+        mtc, nrend, deep = 0, 0, 0
+        for info in scene.train_cameras:
+            b = compute_bins(g0, info.camera, probe_cfg)
+            check(not bool(b.overflow), "training probe overflow")
+            if int(b.max_tile_count) > mtc:
+                mtc, deep = int(b.max_tile_count), info.uid
+            nrend = max(nrend, int(b.num_rendered))
+        train_cfg = RasterizerConfig(
+            max_pairs=round_up(1.5 * nrend, 1024),
+            max_per_tile=round_up(1.5 * mtc, 256), pallas_chunk=CHUNK,
+            use_stream=False)
+        print(f"training scene: {len(scene.train_cameras)} train + "
+              f"{len(scene.test_cameras)} held-out views, extent "
+              f"{scene.extent:.4f}; from_pcd map capacity {g0.capacity}; "
+              f"probe max_tile_count {mtc} (view{deep}), pairs {nrend} -> "
+              f"max_per_tile {train_cfg.max_per_tile}, max_pairs "
+              f"{train_cfg.max_pairs}")
 
-    step_ms = time_ms(one_step, 10)
-    print(f"breakdown: rebin (preprocess + bin_stream + gather) "
-          f"{rebin_ms:.3f} ms, once per {tcfg.rebin_every} iterations; "
-          f"render + loss + backward {step_ms:.3f} ms, of which K1 "
-          f"{k1_ms:.3f} and K2 {k2_ms:.3f}")
-    profile_refine(lambda: refine_pose(
-        g, q0.camera, img0, mask0, tcfg.replace(num_iters=20), cfg,
-        gt_depth=dep0))
+    # ---- K3/K4 vs plain at the training path's shapes -----------------------
+    with phase("K3/K4 vs plain (training windows)"):
+        cam_deep = views[deep]
+        bins_t, geom_t, rgbd_t = pregathered_inputs(g0, cam_deep, train_cfg)
+        check(not bool(bins_t.overflow) and not bool(bins_t.tile_overflow),
+              "training-view bin_gaussians overflow")
+        c_t = bins_t.tile_counts
+        print(f"training windows (initial map, view{deep}): max count "
+              f"{int(c_t.max())} ({-(-int(c_t.max()) // CHUNK)} chunks), "
+              f"median {int(c_t.median())}, geom {tuple(geom_t.shape)}")
+        e3, e4, (gacc_t, glogt_t, resid_t) = compare_pregathered(
+            "train-initial", c_t, geom_t, rgbd_t, grid_x, seed=4)
+        err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
 
-    def entry(name, replaces, n_launch, err, ms, plain_ms, byts, ops):
-        t_bytes, t_ops = byts / PEAK_HBM * 1e3, ops / PEAK_FP32 * 1e3
+    # ---- layout cross-check at full width ------------------------------------
+    with phase("layout cross-check"):
+        gt0 = torch.tensor(imgs[0], device=dev)
+        gd0 = torch.tensor(deps[0], device=dev)
+        stream_cfg = RasterizerConfig(
+            max_pairs=train_cfg.max_pairs, max_render=round_up(1.5 * nrend,
+                                                               CHUNK),
+            pallas_chunk=CHUNK)
+        res = {}
+        for name, c in (("stream", stream_cfg), ("pregathered", train_cfg)):
+            params = {f: getattr(g0, f).clone().requires_grad_()
+                      for f in TRAINABLE}
+            off = torch.zeros((g0.capacity, 2), device=dev,
+                              requires_grad=True)
+            r = rasterize(g0.replace(**params), cam, c, means2d_offset=off)
+            check(not bool(r.overflow) and not bool(r.tile_overflow),
+                  f"cross-check {name} overflow")
+            loss, _ = mlosses.training_loss(r.color, gt0, depth=r.depth,
+                                            gt_depth=gd0)
+            grads = torch.autograd.grad(loss, [params[f] for f in TRAINABLE]
+                                        + [off], allow_unused=True)
+            res[name] = (r._replace(color=r.color.detach(),
+                                    depth=r.depth.detach(),
+                                    alpha=r.alpha.detach()),
+                         float(loss.detach()), grads)
+        (rs, ls, gs_), (rp, lp, gp) = res["stream"], res["pregathered"]
+        img_err = max(float((a - b).abs().max()) for a, b in zip(
+            (rs.color, rs.depth, rs.alpha), (rp.color, rp.depth, rp.alpha)))
+        print(f"layouts: images max|d| {img_err:.3e} (tol {TOL_LAYOUT_IMG}); "
+              f"loss {ls:.7f} vs {lp:.7f} (rtol {TOL_LAYOUT_LOSS})")
+        check(img_err <= TOL_LAYOUT_IMG
+              and abs(ls - lp) <= TOL_LAYOUT_LOSS * abs(ls),
+              "the layouts disagree on images or loss")
+        for name, a, b in zip(TRAINABLE + ("means2d_offset",), gs_, gp):
+            a = torch.zeros(1, device=dev) if a is None else a
+            b = torch.zeros(1, device=dev) if b is None else b
+            scale = float(a.abs().max())
+            if scale == 0.0:          # e.g. features_rest at SH degree 0
+                print(f"layouts: d{name} zero on both: "
+                      f"{float(b.abs().max()) == 0.0}")
+                check(float(b.abs().max()) == 0.0, f"layouts: d{name}")
+                continue
+            e, n = close_err(b / scale, a / scale, *TOL_LAYOUT_GRAD)
+            print(f"layouts: d{name} max|d|/max|g| {e:.3e} (tol atol "
+                  f"{TOL_LAYOUT_GRAD[0]} rtol {TOL_LAYOUT_GRAD[1]}, max "
+                  f"normalized {n:.3f})")
+            check(n <= 1, f"the layouts disagree on d{name}")
+        del res, rs, rp, gs_, gp
+
+    # ---- training path: train_map on the pregathered layout -----------------
+    with phase("training (pregathered, K3/K4)"):
+        with torch.no_grad():
+            psnr0 = float(np.mean([
+                float(mlosses.psnr(rasterize(g0, i.camera, train_cfg).color,
+                                   torch.tensor(imgs[i.uid], device=dev)))
+                for i in scene.test_cameras]))
+        step_losses, logs = [], []
+        (ROOT / "build").mkdir(exist_ok=True)
+        out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_",
+                                        dir=ROOT / "build"))
+        try:
+            torch.cuda.synchronize()
+            gsl.reset_launches()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            trained = train_map(
+                scene, str(out_dir), pipe, raster_cfg=train_cfg,
+                image_loader=lambda info: (imgs[info.uid], deps[info.uid]),
+                log_fn=logs.append, device=dev,
+                step_hook=lambda it, aux: step_losses.append(aux["total"]))
+            ev1.record()
+            ev1.synchronize()
+            launches_train = dict(gsl.LAUNCHES)
+            ms_step = ev0.elapsed_time(ev1) / N_TRAIN
+            for line in logs:
+                print(f"train_map: {line}")
+            losses_np = torch.stack(step_losses).cpu().numpy()
+            first, last = float(losses_np[:10].mean()), float(
+                losses_np[-10:].mean())
+            print(f"training: {N_TRAIN} steps, {ms_step:.3f} ms/step (CUDA "
+                  f"events around train_map, densify, held-out PSNR and the "
+                  f"PLY save included); loss first 10 {first:.5f} -> last 10 "
+                  f"{last:.5f}; live {int(trained.num_live)}, capacity "
+                  f"{trained.capacity}, SH degree {trained.sh_degree}")
+            print(f"training launches: {launches_train}")
+            check(np.isfinite(losses_np).all() and last < first,
+                  "training loss did not fall")
+            n_test = len(scene.test_cameras[:8])
+            check(launches_train["pregathered_bwd"] == N_TRAIN
+                  and launches_train["pregathered_fwd"] == N_TRAIN + n_test
+                  and launches_train["stream_fwd"] == 0
+                  and launches_train["stream_bwd"] == 0,
+                  f"training launches {launches_train} != {N_TRAIN} steps + "
+                  f"{n_test} held-out renders")
+            rounds = [tuple(int(x) for x in m.groups()) for line in logs
+                      for m in [re.search(r"densify: cloned (\d+) split (\d+)",
+                                          line)] if m]
+            check(len(rounds) == 3 and all(c + s > 0 for c, s in rounds),
+                  f"densify rounds {rounds}: each must clone or split")
+            grew = [line for line in logs if "grew capacity" in line]
+            print(f"capacity growth: {trained.capacity} vs initial "
+                  f"{g0.capacity}, {len(grew)} growth lines logged")
+            check((trained.capacity > g0.capacity) == bool(grew),
+                  "a capacity growth was not logged")
+            with torch.no_grad():
+                psnr1 = float(np.mean([
+                    float(mlosses.psnr(
+                        rasterize(trained, i.camera, train_cfg).color,
+                        torch.tensor(imgs[i.uid], device=dev)))
+                    for i in scene.test_cameras]))
+            print(f"held-out PSNR: initial map {psnr0:.3f} dB -> trained "
+                  f"{psnr1:.3f} dB")
+            check(psnr1 > psnr0, "held-out PSNR did not rise")
+            ply = out_dir / "gs_map" / f"iteration_{N_TRAIN}" / \
+                "point_cloud.ply"
+            back = load_map(str(ply), device=dev)
+            with torch.no_grad():
+                a = rasterize(trained, scene.test_cameras[0].camera,
+                              train_cfg)
+                b = rasterize(back, scene.test_cameras[0].camera, train_cfg)
+            ply_err = float((a.color - b.color).abs().max())
+            print(f"PLY round trip: {back.capacity} Gaussians, image max|d| "
+                  f"{ply_err:.3e} (tol {TOL_PLY})")
+            check(back.capacity == int(trained.num_live)
+                  and ply_err <= TOL_PLY, "the saved PLY renders differently")
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        # K3/K4 vs plain on the trained map's windows at the same view
+        bins_f, geom_f, rgbd_f = pregathered_inputs(trained, cam_deep,
+                                                    train_cfg)
+        c_f = bins_f.tile_counts
+        print(f"training windows (trained map, view{deep}): max count "
+              f"{int(c_f.max())}, tile overflow {bool(bins_f.tile_overflow)},"
+              f" geom {tuple(geom_f.shape)}")
+        e3, e4, _ = compare_pregathered("train-final", c_f, geom_f, rgbd_f,
+                                        grid_x, seed=5)
+        err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
+        del bins_f, geom_f, rgbd_f
+
+    # ---- pose mode's PairPack: 2 queries on the pregathered layout ----------
+    with phase("localization (PairPack, K3/K4)"):
+        cfg_pair = cfg.replace(use_stream=False,
+                               max_per_tile=round_up(1.5 * mtc_bench, 256))
+        launches_pair, ms_pair, logs_pair = localize_checked(
+            "pairpack", g, queries[:N_PAIR_QUERIES], init[:N_PAIR_QUERIES],
+            gt_w2c, LocalizePipelineConfig(batch_size=N_PAIR_QUERIES,
+                                           tracking=tcfg), cfg_pair)
+        iters_pair = N_PAIR_QUERIES * N_ITERS
+        check(not any("overflow" in line for line in logs_pair)
+              and launches_pair["pregathered_fwd"] == iters_pair
+              and launches_pair["pregathered_bwd"] == iters_pair
+              and launches_pair["stream_fwd"] == 0,
+              f"PairPack launches {launches_pair} != {iters_pair} iterations")
+        # K3/K4 vs plain on a PairPack's windows (valid row from the
+        # projection, max_per_tile of this phase)
+        with torch.no_grad():
+            pk = build_pair_pack(g, queries[0].camera, cfg_pair)
+            geom_q, rgbd_q = _project_pairs(pk.params, queries[0].camera)
+        print(f"PairPack windows: max count {int(pk.counts.max())}, geom "
+              f"{tuple(geom_q.shape)}")
+        e3, e4, _ = compare_pregathered(
+            "pairpack", pk.counts, geom_q.contiguous(), rgbd_q.contiguous(),
+            grid_x, seed=6)
+        err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
+        del pk, geom_q, rgbd_q
+
+    # ---- timing at the bench shapes -----------------------------------------
+    with phase("timing"):
+        args = (stream_t, pack.tstart, pack.walk_counts)
+        k1_ms = time_ms(lambda: sb.stream_blend_fwd_cuda(*args, grid_x, 16,
+                                                         CHUNK))
+        k1p_ms = time_ms(lambda: sb.stream_blend_fwd_plain(*args, grid_x, 16,
+                                                           CHUNK))
+        k2_ms = time_ms(lambda: sb.stream_blend_bwd_cuda(
+            *args, gacc, glogt, resid, grid_x, 16, CHUNK))
+        k2p_ms = time_ms(lambda: sb.stream_blend_bwd_plain(
+            *args, gacc, glogt, grid_x, 16, CHUNK))
+        work12 = walked_work(stream_t, pack, resid, grid_x)
+        # K3/K4 on the bench windows: the same walked work as K1/K2
+        bargs = (bins_b.tile_counts, geom_b, rgbd_b)
+        k3b_ms = time_ms(lambda: pb.pregathered_blend_fwd_cuda(
+            *bargs, grid_x, 16, CHUNK))
+        k4b_ms = time_ms(lambda: pb.pregathered_blend_bwd_cuda(
+            *bargs, gacc3, glogt3, resid3, grid_x, 16, CHUNK))
+        work34b = pregathered_work(*bargs, resid3, grid_x)
+        # K3/K4 on the training path's windows: the kernels line's numbers
+        pargs = (bins_t.tile_counts, geom_t, rgbd_t)
+        k3_ms = time_ms(lambda: pb.pregathered_blend_fwd_cuda(
+            *pargs, grid_x, 16, CHUNK))
+        k3p_ms = time_ms(lambda: pb.pregathered_blend_fwd_plain(
+            *pargs, grid_x, 16, CHUNK))
+        k4_ms = time_ms(lambda: pb.pregathered_blend_bwd_cuda(
+            *pargs, gacc_t, glogt_t, resid_t, grid_x, 16, CHUNK))
+        k4p_ms = time_ms(lambda: pb.pregathered_blend_bwd_plain(
+            *pargs, gacc_t, glogt_t, grid_x, 16, CHUNK))
+        work34 = pregathered_work(*pargs, resid_t, grid_x)
+        for label, wk in (("K1/K2 bench", work12), ("K3/K4 bench", work34b),
+                          ("K3/K4 training", work34)):
+            b_fwd = max(wk["fwd_ops_s"], wk["fwd_bytes"] / PEAK_HBM) * 1e3
+            b_bwd = max(wk["bwd_ops_s"], wk["bwd_bytes"] / PEAK_HBM) * 1e3
+            print(f"walked {label}: {wk['chunks']} chunks, {wk['slots']} pair "
+                  f"slots x 256 pixels, {wk['gated']} (pixel, pair) products "
+                  f"pass the gate; fwd {wk['fwd_bytes']} bytes, (fp32, sfu) "
+                  f"instructions {wk['fwd_ins']}; bwd {wk['bwd_bytes']} "
+                  f"bytes, {wk['bwd_ins']}; bound fwd {b_fwd:.4f} ms, bwd "
+                  f"{b_bwd:.4f} ms")
+        print(f"bench shapes: K1 {k1_ms:.4f} ms (plain {k1p_ms:.3f}), K2 "
+              f"{k2_ms:.4f} ms (plain {k2p_ms:.3f}), K3 {k3b_ms:.4f} ms, K4 "
+              f"{k4b_ms:.4f} ms")
+        print(f"training shapes (cap {geom_t.shape[2]}): K3 {k3_ms:.4f} ms "
+              f"(plain {k3p_ms:.3f}), K4 {k4_ms:.4f} ms (plain {k4p_ms:.3f})")
+
+    # ---- where a refinement iteration's and a training step's time goes -----
+    with phase("breakdown and profiles"):
+        q0 = queries[0]
+        img0 = torch.tensor(q0.image, device=dev)
+        dep0 = torch.tensor(q0.depth, device=dev)
+        mask0 = torch.ones(img0.shape[:2], dtype=torch.bool, device=dev)
+        rebin_ms = time_ms(lambda: build_stream_pair_pack(g, q0.camera, cfg),
+                           5)
+        pack0 = build_stream_pair_pack(g, q0.camera, cfg)
+
+        def one_step():
+            tau = torch.zeros(6, device=dev, requires_grad=True)
+            ab = torch.zeros(2, device=dev, requires_grad=True)
+            c, d, a = render_pose_mode(pack0, q0.camera.with_delta(tau), cfg)
+            loss = tracking_loss(c, d, a, ab, img0, mask0, tcfg,
+                                 gt_depth=dep0)
+            torch.autograd.grad(loss, (tau, ab))
+
+        step_ms = time_ms(one_step, 10)
+        print(f"breakdown refine: rebin (preprocess + bin_stream + gather) "
+              f"{rebin_ms:.3f} ms, once per {tcfg.rebin_every} iterations; "
+              f"render + loss + backward {step_ms:.3f} ms, of which K1 "
+              f"{k1_ms:.3f} and K2 {k2_ms:.3f}")
+        profile("refine", lambda: refine_pose(
+            g, q0.camera, img0, mask0, tcfg.replace(num_iters=20), cfg,
+            gt_depth=dep0), 20)
+
+        mcfg = mtrain.MapTrainConfig(spatial_scale=scene.extent)
+        tstate = mtrain.init_training(trained, mcfg)
+        tviews = [(i.camera, torch.tensor(imgs[i.uid], device=dev),
+                   torch.tensor(deps[i.uid], device=dev))
+                  for i in scene.train_cameras]
+
+        def train_steps(n=20):
+            st = tstate
+            for k in range(n):
+                c, im, dp = tviews[k % len(tviews)]
+                st, _ = mtrain.train_step(st, c, im, mcfg, train_cfg,
+                                          gt_depth=dp)
+            return st
+
+        tstep_ms = time_ms(lambda: train_steps(1), 10)
+        print(f"breakdown train: one train_step {tstep_ms:.3f} ms at "
+              f"{trained.capacity} slots ({int(trained.num_live)} live)")
+        profile("train", train_steps, 20)
+
+    def entry(name, source, replaces, n_launch, err, ms, plain_ms, byts,
+              ops_s):
+        t_bytes, t_ops = byts / PEAK_HBM * 1e3, ops_s * 1e3
         return {"name": name, "route": "cuda",
-                "source": "gs_localization_torch/csrc/stream_blend.cu",
+                "source": f"gs_localization_torch/csrc/{source}",
                 "replaces": replaces, "launches": n_launch,
                 "max_abs_err": err, "ms": ms, "kernel_ms": ms,
                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -509,12 +1083,22 @@ def main() -> None:
                 "library_ms": None}
 
     kernels = [
-        entry("stream_fwd", "gs_localization_tpu/raster/stream_blend.py:85",
-              launches["stream_fwd"], err_fwd, k1_ms, k1p_ms,
-              work["fwd_bytes"], work["fwd_ops"]),
-        entry("stream_bwd", "gs_localization_tpu/raster/stream_blend.py:161",
-              launches["stream_bwd"], err_bwd, k2_ms, k2p_ms,
-              work["bwd_bytes"], work["bwd_ops"]),
+        entry("stream_fwd", "stream_blend.cu",
+              "gs_localization_tpu/raster/stream_blend.py:85",
+              launches_loc["stream_fwd"], err_k1, k1_ms, k1p_ms,
+              work12["fwd_bytes"], work12["fwd_ops_s"]),
+        entry("stream_bwd", "stream_blend.cu",
+              "gs_localization_tpu/raster/stream_blend.py:161",
+              launches_loc["stream_bwd"], err_k2, k2_ms, k2p_ms,
+              work12["bwd_bytes"], work12["bwd_ops_s"]),
+        entry("pregathered_fwd", "pallas_blend.cu",
+              "gs_localization_tpu/raster/pallas_blend.py:82",
+              launches_train["pregathered_fwd"], err_k3, k3_ms, k3p_ms,
+              work34["fwd_bytes"], work34["fwd_ops_s"]),
+        entry("pregathered_bwd", "pallas_blend.cu",
+              "gs_localization_tpu/raster/pallas_blend.py:145",
+              launches_train["pregathered_bwd"], err_k4, k4_ms, k4p_ms,
+              work34["bwd_bytes"], work34["bwd_ops_s"]),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

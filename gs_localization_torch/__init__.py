@@ -4,13 +4,15 @@ Same sub-packages and module names as the JAX package, so each counterpart
 is found by path:
 
 - ``core``      : cameras, SE(3), spherical harmonics, Gaussian parameters.
-- ``raster``    : preprocess, stream binning, the stream blend (hand-written
-                  CUDA kernels for sm_90a, plain PyTorch on the CPU), pose mode.
-- ``data``      : Gaussian map PLY files.
-- ``ops``       : image-gradient tracking masks.
+- ``raster``    : preprocess, binning (pair stream or per-tile id matrix), the
+                  stream and pregathered blends (hand-written CUDA kernels
+                  for sm_90a, plain PyTorch on the CPU), pose mode.
+- ``data``      : Gaussian map PLY files, in-memory scenes.
+- ``ops``       : image-gradient tracking masks, SSIM, k-NN distances.
+- ``mapping``   : map training: losses, per-group Adam, densification.
 - ``loc``       : gradient-descent pose refinement.
 - ``sfm``       : pose-error metrics.
-- ``pipelines`` : query localization.
+- ``pipelines`` : query localization, map training.
 
 Device policy: entry points that create tensors take ``device="cuda"`` by
 default and raise when CUDA is absent; pass ``device="cpu"`` to run the plain
@@ -29,7 +31,8 @@ __version__ = "0.1.0"
 
 # Launch counters of the hand-written kernels: each wrapper adds one where
 # it launches its kernel, and nowhere else.
-LAUNCHES: Dict[str, int] = {"stream_fwd": 0, "stream_bwd": 0}
+LAUNCHES: Dict[str, int] = {"stream_fwd": 0, "stream_bwd": 0,
+                            "pregathered_fwd": 0, "pregathered_bwd": 0}
 
 
 def reset_launches() -> None:

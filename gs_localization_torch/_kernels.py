@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
-``csrc/stream_blend.cu`` is compiled by ``nvcc`` into a shared library with
-a plain C interface, at first use, into ``build/torch_kernels/`` beside the
-package, keyed by a hash of the source and the flags. The library is loaded
-with ``ctypes``. Nothing here runs at import time, so the package imports
-on a machine with neither ``nvcc`` nor a GPU.
+Every ``csrc/*.cu`` (the stream blend K1/K2 and the pregathered blend
+K3/K4, which share ``csrc/blend_common.cuh``) is compiled by ``nvcc`` at
+first use, one process per source, all started together, and the objects
+are linked into one shared library with a plain C interface in
+``build/torch_kernels/`` beside the package. The library's name carries a
+hash of every source and header and of the flags. It is loaded with
+``ctypes``. Nothing here runs at import time, so the package imports on a
+machine with neither ``nvcc`` nor a GPU.
 """
 
 from __future__ import annotations
@@ -17,16 +20,20 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "stream_blend.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 # no --use_fast_math: the blend gates are threshold tests
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _LIB: Optional[ctypes.CDLL] = None
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -39,29 +46,47 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{SOURCE.stem}_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libgsl_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(procs) -> None:
+    errors = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd)}: exit {proc.returncode}\n"
+                          f"{out}{err}")
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
 
 
 def build() -> Optional[float]:
-    """Compile the library if it is missing. Returns the seconds ``nvcc``
+    """Compile the library if it is missing. Returns the seconds the build
     took, or None when the library was already built."""
     out = library_path()
     if out.exists():
         return None
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"kernel build failed: nvcc exit "
-                           f"{proc.returncode}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+            objs.append(obj)
+        _run(procs)
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        os.replace(lib, out)
     return time.perf_counter() - t0
 
 
@@ -71,4 +96,6 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         build()
         _LIB = ctypes.CDLL(str(library_path()))
+        _LIB.gsl_error_string.argtypes = [ctypes.c_int]
+        _LIB.gsl_error_string.restype = ctypes.c_char_p
     return _LIB

@@ -27,6 +27,13 @@ FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
           "opacity", "live")
 
 
+def pad_rows(a: torch.Tensor, rows: int, fill=0.0) -> torch.Tensor:
+    """``a`` with its leading dimension padded to ``rows`` by ``fill``."""
+    out = a.new_full((rows,) + tuple(a.shape[1:]), fill)
+    out[:a.shape[0]] = a
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class GaussianParams:
     xyz: torch.Tensor
@@ -71,6 +78,31 @@ class GaussianParams:
     def get_features(self) -> torch.Tensor:
         """(N, K, 3) concatenated SH coefficients."""
         return torch.cat([self.features_dc, self.features_rest], dim=1)
+
+    def one_up_sh_degree(self) -> "GaussianParams":
+        if self.sh_degree < self.max_sh_degree:
+            return self.replace(sh_degree=self.sh_degree + 1)
+        return self
+
+    def grown(self, new_capacity: int) -> "GaussianParams":
+        """Pad every per-Gaussian array to a larger capacity: dead slots
+        (``live`` False) with log-scale and logit opacity -10 and the
+        quaternion [1, 0, 0, 0], so that normalizing stays finite."""
+        cap = self.capacity
+        if new_capacity < cap:
+            raise ValueError(f"new capacity {new_capacity} < {cap}")
+        if new_capacity == cap:
+            return self
+
+        n = new_capacity
+        rot = pad_rows(self.rotation, n)
+        rot[cap:, 0] = 1.0
+        return self.replace(
+            xyz=pad_rows(self.xyz, n), features_dc=pad_rows(self.features_dc, n),
+            features_rest=pad_rows(self.features_rest, n),
+            scaling=pad_rows(self.scaling, n, -10.0), rotation=rot,
+            opacity=pad_rows(self.opacity, n, -10.0),
+            live=pad_rows(self.live, n, False))
 
     # ------------------------------------------------------------------
     @classmethod
@@ -148,5 +180,49 @@ class GaussianParams:
         return cls(live=live, sh_degree=int(sh_degree),
                    max_sh_degree=int(max_sh_degree), **t)
 
+    @classmethod
+    def from_pcd(cls, points, colors, sh_degree: int = 3,
+                 capacity: Optional[int] = None, point_size: float = 1.0,
+                 mean_sq_dist=None, device="cuda") -> "GaussianParams":
+        """Initialize from a coloured point cloud (SfM points): DC features
+        from RGB, isotropic log-scales from sqrt(mean 3-NN squared
+        distance), identity quaternions, opacity sigmoid^-1(0.1); active SH
+        degree 0."""
+        from ..ops.knn import mean_knn_sq_dist  # local import: avoids a cycle
+
+        dev = resolve_device(device)
+        points = np.asarray(points, np.float32)
+        p = points.shape[0]
+        if p == 0:
+            raise ValueError(
+                "cannot initialize a Gaussian map from 0 points: the SfM "
+                "stage produced an empty cloud")
+        k = sh_lib.num_sh_coeffs(sh_degree)
+        if mean_sq_dist is None:
+            mean_sq_dist = mean_knn_sq_dist(
+                torch.tensor(points, device=dev), k=3)
+        dist = torch.clamp_min(torch.as_tensor(mean_sq_dist,
+                                               dtype=torch.float32,
+                                               device=dev), 1e-7)
+        scales = torch.log(torch.sqrt(dist) * point_size)[:, None].repeat(1, 3)
+        fdc = sh_lib.rgb_to_sh_dc(np.asarray(colors, np.float32))[:, None, :]
+        rot = np.zeros((p, 4), np.float32)
+        rot[:, 0] = 1.0
+        return cls.from_arrays(
+            xyz=points, features_dc=fdc,
+            features_rest=np.zeros((p, k - 1, 3), np.float32),
+            scaling=scales.cpu().numpy(), rotation=rot,
+            opacity=np.full((p, 1), _inverse_sigmoid(0.1), np.float32),
+            sh_degree=sh_degree, active_sh_degree=0, capacity=capacity,
+            device=dev)
+
     def to_numpy(self) -> dict:
         return {f: getattr(self, f).detach().cpu().numpy() for f in FIELDS}
+
+
+def _inverse_sigmoid(x: float) -> float:
+    return float(np.log(x / (1.0 - x)))
+
+
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x / (1.0 - x))

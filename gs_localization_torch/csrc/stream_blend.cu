@@ -6,14 +6,8 @@
 //   K2  _bwd_kernel  (reverse walk; per-pair gradients summed over the
 //                     tile's 256 pixels, written at the pair's own position)
 //
-// Contract (shared with the plain PyTorch versions in stream_blend.py):
-//   power = -0.5 (a dx^2 + c dy^2) - b dx dy, dx = x - px (integer pixel px)
-//   gated out when power > 0, opa exp(power) < 1/255, valid <= 0.5 or the
-//   lane is past the tile's count; alpha = min(0.99, opa exp(power));
-//   la = log(1 - alpha); a pair is applied while the INCLUSIVE log T >=
-//   log(1e-4); w = alpha * T_before. A tile stops after the first chunk at
-//   whose end every pixel has log T < log(1e-4); k_stop counts the chunks
-//   it visited.
+// The blend contract and the per-chunk walks are in blend_common.cuh,
+// shared with the pregathered kernels (pallas_blend.cu).
 //
 // What bounds it on the H100: the per-(pixel, pair) gate and blend math on
 // the CUDA cores (fp32, transcendental exp/log), not memory: each walked
@@ -25,30 +19,19 @@
 // end of each chunk. K2 reduces each pair's 10 gradient values over the
 // tile's pixels with warp shuffles into per-warp partials in shared memory,
 // then sums the 8 partials in a fixed order: deterministic, no atomics.
-// Warps in which no pixel passes a pair's gate skip that pair's reduction.
 //
 // Ordering: CTAs run in any order. Each CTA writes only whole chunks inside
 // its own aligned window (windows are disjoint because align == chunk), and
 // the caller zero-fills dstream and masks positions >= kept_al, so nothing
 // depends on the TPU's sequential grid order.
-//
-// The gate arithmetic uses explicitly rounded intrinsics (no FMA
-// contraction) in the same order as the plain PyTorch version, so the
-// 1/255 threshold test sees the same float on both sides. Build WITHOUT
-// --use_fast_math: the gates are threshold tests.
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;   // threads per CTA, one per pixel
-constexpr int kWarps = kPix / 32;
-constexpr int kRows = 12;             // staged rows: x y a b c opa valid pad r g b depth
-constexpr int kGrad = 10;             // gradient rows 0-5 and 8-11
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kLogTEps = -9.210340371976182f;   // log(1e-4)
+using namespace gsl;
 
 struct Window {
   int start;
@@ -78,40 +61,6 @@ __device__ __forceinline__ void stage_chunk(float* stage,
   }
 }
 
-struct Gate {
-  float dx, dy, expp, araw;
-  bool in;
-};
-
-// Same operation order as stream_blend._chunk_alpha.
-__device__ __forceinline__ Gate gate_of(const float* stage, int chunk, int j,
-                                        float px, float py) {
-  const float x = stage[0 * chunk + j];
-  const float y = stage[1 * chunk + j];
-  const float a = stage[2 * chunk + j];
-  const float b = stage[3 * chunk + j];
-  const float c = stage[4 * chunk + j];
-  const float opa = stage[5 * chunk + j];
-  const float vld = stage[6 * chunk + j];
-  Gate g;
-  g.dx = __fsub_rn(x, px);
-  g.dy = __fsub_rn(y, py);
-  const float qa = __fmul_rn(__fmul_rn(a, g.dx), g.dx);
-  const float qc = __fmul_rn(__fmul_rn(c, g.dy), g.dy);
-  const float qb = __fmul_rn(__fmul_rn(b, g.dx), g.dy);
-  const float power = __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(qa, qc)), qb);
-  g.expp = expf(fminf(power, 0.0f));
-  g.araw = __fmul_rn(opa, g.expp);
-  g.in = (power <= 0.0f) && (g.araw >= kAlphaMin) && (vld > 0.5f);
-  return g;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 __global__ void __launch_bounds__(kPix)
 stream_fwd_kernel(const int* __restrict__ tstart, const int* __restrict__ wcount,
                   const float* __restrict__ stream, int mrpad, int grid_x,
@@ -120,8 +69,8 @@ stream_fwd_kernel(const int* __restrict__ tstart, const int* __restrict__ wcount
   extern __shared__ float stage[];   // kRows * chunk
   const int t = blockIdx.x;
   const int i = threadIdx.x;
-  const float px = (float)((t % grid_x) * kTile + i % kTile);
-  const float py = (float)((t / grid_x) * kTile + i / kTile);
+  float px, py;
+  pixel_of(t, grid_x, &px, &py);
   const Window win = tile_window(tstart, wcount, t, mrpad, chunk);
 
   float log_full = 0.0f;   // every alpha: the saturation test and resid
@@ -134,20 +83,7 @@ stream_fwd_kernel(const int* __restrict__ tstart, const int* __restrict__ wcount
     __syncthreads();                 // previous chunk fully consumed
     stage_chunk(stage, stream, mrpad, base, chunk);
     __syncthreads();
-    for (int j = 0; j < lanes; ++j) {
-      const Gate g = gate_of(stage, chunk, j, px, py);
-      if (!g.in) continue;           // alpha = 0: la = 0, w = 0
-      const float alpha = fminf(kAlphaMax, g.araw);
-      const float la = logf(1.0f - alpha);
-      const float clog = log_full + la;
-      if (clog >= kLogTEps) {
-        const float w = alpha * expf(log_full);
-#pragma unroll
-        for (int ch = 0; ch < 4; ++ch) acc[ch] += w * stage[(8 + ch) * chunk + j];
-        log_app += la;
-      }
-      log_full = clog;
-    }
+    blend_chunk_fwd(stage, chunk, lanes, px, py, log_full, log_app, acc);
     ++k;
     if (!__syncthreads_or(log_full >= kLogTEps)) break;
   }
@@ -171,10 +107,8 @@ stream_bwd_kernel(const int* __restrict__ tstart, const int* __restrict__ wcount
   float* part = smem + kRows * chunk;         // kWarps * kGrad * chunk
   const int t = blockIdx.x;
   const int i = threadIdx.x;
-  const int warp = i >> 5;
-  const int lane = i & 31;
-  const float px = (float)((t % grid_x) * kTile + i % kTile);
-  const float py = (float)((t / grid_x) * kTile + i / kTile);
+  float px, py;
+  pixel_of(t, grid_x, &px, &py);
   const Window win = tile_window(tstart, wcount, t, mrpad, chunk);
   const size_t tp = (size_t)t * kPix + i;
   const int k_stop = min(max((int)resid[2 * (size_t)t * kPix + 1], 0), win.n_chunks);
@@ -192,62 +126,14 @@ stream_bwd_kernel(const int* __restrict__ tstart, const int* __restrict__ wcount
     __syncthreads();                          // stage and partials free
     stage_chunk(stage, stream, mrpad, base, chunk);
     __syncthreads();
-    for (int j = lanes - 1; j >= 0; --j) {
-      const Gate g = gate_of(stage, chunk, j, px, py);
-      float v[kGrad];
-#pragma unroll
-      for (int q = 0; q < kGrad; ++q) v[q] = 0.0f;
-      if (g.in) {
-        const float a = stage[2 * chunk + j];
-        const float b = stage[3 * chunk + j];
-        const float c = stage[4 * chunk + j];
-        const float alpha = fminf(kAlphaMax, g.araw);
-        const float la = logf(1.0f - alpha);
-        const float log_before = log_after - la;
-        const bool applied = log_after >= kLogTEps;
-        const float t_prev = expf(log_before);
-        const float w = applied ? alpha * t_prev : 0.0f;
-        float wbar = 0.0f;
-#pragma unroll
-        for (int ch = 0; ch < 4; ++ch) wbar += gc[ch] * stage[(8 + ch) * chunk + j];
-        const float labar = suffix + (applied ? gl : 0.0f);
-        const float abar = (applied ? wbar * t_prev : 0.0f) - labar / (1.0f - alpha);
-        const bool unclamped = g.araw < kAlphaMax;
-        const float dpow = unclamped ? abar * g.araw : 0.0f;
-        const float dopa = unclamped ? abar * g.expp : 0.0f;
-        v[0] = dpow * -(a * g.dx + b * g.dy);
-        v[1] = dpow * -(c * g.dy + b * g.dx);
-        v[2] = dpow * (-0.5f * g.dx * g.dx);
-        v[3] = dpow * (-g.dx * g.dy);
-        v[4] = dpow * (-0.5f * g.dy * g.dy);
-        v[5] = dopa;
-#pragma unroll
-        for (int ch = 0; ch < 4; ++ch) v[6 + ch] = gc[ch] * w;
-        suffix += wbar * w;
-        log_after = log_before;
-      }
-      float* pj = part + (size_t)warp * kGrad * chunk + j;
-      if (__any_sync(0xffffffffu, g.in)) {
-#pragma unroll
-        for (int q = 0; q < kGrad; ++q) {
-          const float s = warp_sum(v[q]);
-          if (lane == 0) pj[q * chunk] = s;
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int q = 0; q < kGrad; ++q) pj[q * chunk] = 0.0f;
-      }
-    }
+    blend_chunk_bwd(stage, part, chunk, lanes, px, py, gc, gl, log_after,
+                    suffix);
     __syncthreads();
-    // fixed-order sum of the per-warp partials: deterministic
     for (int j = i; j < lanes; j += kPix) {
 #pragma unroll
       for (int q = 0; q < kGrad; ++q) {
-        float s = 0.0f;
-#pragma unroll
-        for (int wp = 0; wp < kWarps; ++wp) s += part[((size_t)wp * kGrad + q) * chunk + j];
         const int row = q < 6 ? q : q + 2;
-        dstream[(size_t)row * mrpad + base + j] = s;
+        dstream[(size_t)row * mrpad + base + j] = sum_partials(part, chunk, q, j);
       }
     }
   }
@@ -257,18 +143,11 @@ stream_bwd_kernel(const int* __restrict__ tstart, const int* __restrict__ wcount
 
 extern "C" {
 
-// Shared memory bytes each kernel needs at a given chunk.
-size_t gsl_stream_fwd_smem(int chunk) { return sizeof(float) * kRows * chunk; }
-size_t gsl_stream_bwd_smem(int chunk) {
-  return sizeof(float) * (kRows + kWarps * kGrad) * (size_t)chunk;
-}
-
 int gsl_stream_fwd(const int* tstart, const int* wcount, const float* stream,
                    int num_tiles, int mrpad, int grid_x, int chunk,
                    float* accum, float* logt, float* resid, void* cuda_stream) {
   if (num_tiles == 0) return 0;
-  const size_t smem = gsl_stream_fwd_smem(chunk);
-  stream_fwd_kernel<<<num_tiles, kPix, smem, (cudaStream_t)cuda_stream>>>(
+  stream_fwd_kernel<<<num_tiles, kPix, fwd_smem(chunk), (cudaStream_t)cuda_stream>>>(
       tstart, wcount, stream, mrpad, grid_x, chunk, accum, logt, resid);
   return (int)cudaGetLastError();
 }
@@ -278,7 +157,7 @@ int gsl_stream_bwd(const int* tstart, const int* wcount, const float* stream,
                    const float* gacc, const float* glogt, const float* resid,
                    float* dstream, void* cuda_stream) {
   if (num_tiles == 0) return 0;
-  const size_t smem = gsl_stream_bwd_smem(chunk);
+  const size_t smem = bwd_smem(chunk);
   cudaError_t err = cudaFuncSetAttribute(
       stream_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

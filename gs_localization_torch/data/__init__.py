@@ -1,1 +1,1 @@
-"""Data I/O: Gaussian map PLY files."""
+"""Data I/O: Gaussian map PLY files, scenes held in memory."""

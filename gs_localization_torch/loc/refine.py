@@ -97,10 +97,15 @@ def refine_pose(
 ) -> RefineResult:
     """Refine one camera pose."""
     if cfg.pose_mode:
-        from ..raster.pose_mode import build_stream_pair_pack, render_pose_mode
+        from ..raster.pose_mode import (
+            build_pair_pack, build_stream_pair_pack, render_pose_mode)
+
+        # the uncapped stream pack, or the capped per-tile windows
+        build = (build_stream_pair_pack if raster_cfg.use_stream
+                 else build_pair_pack)
 
         def make_bins(cam):
-            return build_stream_pair_pack(gaussians, cam, raster_cfg)
+            return build(gaussians, cam, raster_cfg)
 
         def bins_overflow(pack):
             return pack.overflow

@@ -1,7 +1,8 @@
-"""Tile binning as a depth-ranked, chunk-aligned pair stream.
+"""Tile binning: a depth-ranked, chunk-aligned pair stream (``bin_stream``)
+or a padded per-tile id matrix (``bin_gaussians``).
 
-Same pair semantics as the JAX package's ``bin_stream``, down to the
-integers:
+Same pair semantics as the JAX package's ``bin_stream`` and
+``bin_gaussians``, down to the integers:
 
 1. argsort Gaussians by the **bitcast-int32** view depth (positive IEEE
    floats order correctly as ints), stable.
@@ -13,13 +14,14 @@ integers:
 3. pairs sort once by a **packed int32 key** ``tile * R + depth_rank``
    (R = next pow2 >= P); a per-tile opacity cull drops (Gaussian, tile)
    pairs whose max alpha over the tile is below the blend's 1/255 gate.
-4. per-tile [start, count) by a searchsorted on the key boundaries, then an
-   aligned layout: tile t's pairs live at [tstart[t], tstart[t]+count) with
-   tstart a multiple of ``align`` so windows never overlap across tiles.
+4. per-tile [start, count) by a searchsorted on the key boundaries, then
+   either an aligned layout (stream: tile t's pairs live at [tstart[t],
+   tstart[t]+count) with tstart a multiple of ``align`` so windows never
+   overlap across tiles) or a padded (num_tiles, max_per_tile) id matrix.
 
 All shapes are static; the slow pool (``overflow``) and the materialized
-stream (``tile_overflow``) are the only capacities and are reported as
-flags.
+stream or per-tile cap (``tile_overflow``) are the capacities and are
+reported as flags.
 """
 
 from __future__ import annotations
@@ -76,6 +78,34 @@ def _cull_table(prep: Preprocessed) -> torch.Tensor:
                        torch.full_like(op, -1.0))
     return torch.cat([prep.rect.to(torch.float32), prep.means2d, prep.conic,
                       qmax[:, None]], dim=1)
+
+
+class Binning(NamedTuple):
+    """Per-tile Gaussian ids at a static capacity ``max_per_tile``."""
+
+    tile_gid: torch.Tensor     # (num_tiles, max_per_tile) int32 Gaussian ids;
+    #   lanes past the count hold the ids the key matrix gives (real ids)
+    tile_mask: torch.Tensor    # (num_tiles, max_per_tile) bool
+    tile_counts: torch.Tensor  # (num_tiles,) int32, clipped to max_per_tile
+    num_rendered: torch.Tensor   # () int32 total emitted pairs
+    overflow: torch.Tensor       # () bool: slow-path capacity exceeded
+    tile_overflow: torch.Tensor  # () bool: some tile's count > max_per_tile
+    max_tile_count: torch.Tensor  # () int32 true max count (pre-clip)
+
+
+def _check_rank_size(num_tiles: int, rank_size: int) -> None:
+    assert (num_tiles + 1) * rank_size < 2**31, (
+        f"packed sort key overflow: {num_tiles} tiles x {rank_size} rank "
+        "slots")
+
+
+def _depth_order(prep: Preprocessed) -> torch.Tensor:
+    """Stable argsort by the bitcast-int32 view depth, invalid last."""
+    depths = prep.depths.detach().contiguous()
+    depth_key = torch.where(prep.valid, depths.view(torch.int32),
+                            torch.full_like(depths.view(torch.int32),
+                                            INT32_MAX))
+    return torch.argsort(depth_key, stable=True).to(torch.int32)
 
 
 class StreamBins(NamedTuple):
@@ -196,15 +226,8 @@ def bin_stream(
     p = prep.depths.shape[0]
     num_tiles = grid_x * grid_y
     rank_size = _next_pow2(max(p, 2))
-    assert (num_tiles + 1) * rank_size < 2**31, (
-        f"packed sort key overflow: {num_tiles} tiles x {rank_size} rank "
-        "slots")
-
-    depths = prep.depths.detach().contiguous()
-    depth_key = torch.where(prep.valid, depths.view(torch.int32),
-                            torch.full_like(depths.view(torch.int32),
-                                            INT32_MAX))
-    order = torch.argsort(depth_key, stable=True).to(torch.int32)
+    _check_rank_size(num_tiles, rank_size)
+    order = _depth_order(prep)
     keys, starts, total_slow, touched_s = _emit_pair_keys(
         prep, order, grid_x, grid_y, rank_size, max_pairs, fast_k,
         tile_size, tile_cull)
@@ -275,4 +298,52 @@ def bin_stream(
         tile_overflow=kept_true > mr,
         max_tile_count=max_tile_count,
         align=align,
+    )
+
+
+def bin_gaussians(
+    prep: Preprocessed,
+    grid_x: int,
+    grid_y: int,
+    max_pairs: int,
+    max_per_tile: int,
+    fast_k: int = 8,
+    tile_size: int = 16,
+    tile_cull: bool = True,
+) -> Binning:
+    """Depth-sorted tile binning as a padded (num_tiles, max_per_tile) id
+    matrix (see Binning); a tile's pairs past ``max_per_tile`` (its
+    farthest) are dropped and flagged by ``tile_overflow``."""
+    dev = prep.depths.device
+    p = prep.depths.shape[0]
+    num_tiles = grid_x * grid_y
+    rank_size = _next_pow2(max(p, 2))
+    _check_rank_size(num_tiles, rank_size)
+    order = _depth_order(prep)
+    keys, _, total_slow, touched_s = _emit_pair_keys(
+        prep, order, grid_x, grid_y, rank_size, max_pairs, fast_k,
+        tile_size, tile_cull)
+    keys_sorted = torch.sort(keys).values
+
+    boundaries = _arange(num_tiles + 1, dev) * rank_size
+    bounds = torch.searchsorted(keys_sorted, boundaries, right=False).to(
+        torch.int32)
+    tstart = bounds[:-1]
+    tcount = bounds[1:] - bounds[:-1]
+    kidx = _arange(max_per_tile, dev)
+    flat_idx = torch.clamp(tstart[:, None] + kidx[None, :], 0,
+                           keys.shape[0] - 1)
+    tile_mask = kidx[None, :] < torch.clamp_max(tcount, max_per_tile)[:, None]
+    rank_mat = keys_sorted[flat_idx.long()] & (rank_size - 1)
+    tile_gid = order[torch.clamp_max(rank_mat, p - 1).long()]
+
+    max_tile_count = torch.max(tcount)
+    return Binning(
+        tile_gid=tile_gid,
+        tile_mask=tile_mask,
+        tile_counts=torch.clamp_max(tcount, max_per_tile),
+        num_rendered=torch.sum(touched_s, dtype=torch.int32),
+        overflow=total_slow > max_pairs,
+        tile_overflow=max_tile_count > max_per_tile,
+        max_tile_count=max_tile_count,
     )

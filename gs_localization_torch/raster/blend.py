@@ -1,8 +1,9 @@
 """Per-tile blend outputs and the tile -> image layout.
 
 The blend itself (front-to-back alpha compositing per 16x16 tile, cut off
-once T < 1e-4) lives in ``stream_blend.py``: a hand-written CUDA kernel for
-tensors on the card, its plain PyTorch version for tensors on the CPU.
+once T < 1e-4) lives in ``stream_blend.py`` and ``pallas_blend.py``:
+hand-written CUDA kernels for tensors on the card, their plain PyTorch
+versions for tensors on the CPU.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Reference semantics: alpha = min(0.99, opa*exp(power)), skip alpha < 1/255,
 stop when T < 1e-4. The binning cull is exact only if its threshold equals
-the kernels' gate, so both read it from here. ``csrc/stream_blend.cu``
+the kernels' gate, so both read it from here. ``csrc/blend_common.cuh``
 repeats the same three values.
 """
 

@@ -12,8 +12,9 @@ pose moves by ~1e-3 per step, so the loop is restructured:
               chains through the elementwise projection to the 6-dim camera
               tangent by autograd: no scatter in the backward.
 
-The legacy capped ``PairPack`` layout needs the pregathered kernels, which
-are not ported yet.
+The capped ``PairPack`` layout (``use_stream=False``) gathers the same
+params into per-tile (T, 16, max_per_tile) windows once per rebin, and
+blends them with the pregathered kernels (K3/K4).
 """
 
 from __future__ import annotations
@@ -25,8 +26,18 @@ import torch
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams
 from . import stream_blend
+from .pallas_blend import blend_pregathered_pallas
 from .preprocess import build_cov3d, preprocess
-from .rasterize import RasterizerConfig, bin_stream_for, composite
+from .rasterize import (RasterizerConfig, bin_gaussians_for, bin_stream_for,
+                        composite)
+
+
+class PairPack(NamedTuple):
+    """Pose-independent params per pair in per-tile windows (capped)."""
+
+    params: torch.Tensor     # (T, 16, cap) rows as StreamPairPack's
+    counts: torch.Tensor     # (T,) int32
+    overflow: torch.Tensor   # () bool
 
 
 class StreamPairPack(NamedTuple):
@@ -114,6 +125,22 @@ def _project_core(camera: Camera, x, y, z, c00, c01, c02, c11, c12, c22,
             valid.to(torch.float32), vz)
 
 
+def _project_pairs(params: torch.Tensor, camera: Camera,
+                   near_cull: float = 0.2
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(T, 16, cap) params + pose -> (geom (T,8,cap), rgbd (T,4,cap))."""
+    px, py, ia, ib, ic, validf, vz = _project_core(
+        camera, params[:, _PX], params[:, _PY], params[:, _PZ],
+        params[:, _C00], params[:, _C01], params[:, _C02],
+        params[:, _C11], params[:, _C12], params[:, _C22],
+        params[:, _PVALID], near_cull)
+    geom = torch.stack([px, py, ia, ib, ic, params[:, _POPA], validf,
+                        torch.zeros_like(px)], dim=1)
+    rgbd = torch.stack([params[:, _PR], params[:, _PG], params[:, _PB], vz],
+                       dim=1)
+    return geom, rgbd
+
+
 def _project_stream(params: torch.Tensor, camera: Camera,
                     near_cull: float = 0.2) -> torch.Tensor:
     """(16, N) stream params + pose -> (16, N) blend-layout stream rows
@@ -131,6 +158,39 @@ def _project_stream(params: torch.Tensor, camera: Camera,
          zero, zero, zero, zero], dim=0)
 
 
+def _param_pack(gaussians: GaussianParams, prep,
+                config: RasterizerConfig) -> torch.Tensor:
+    """(P, 14) pose-independent rows: xyz, cov3d, opacity, valid, rgb."""
+    cov3d = build_cov3d(gaussians.get_scaling, gaussians.get_rotation,
+                        config.scale_modifier)
+    return torch.stack(
+        [gaussians.xyz[:, 0], gaussians.xyz[:, 1], gaussians.xyz[:, 2],
+         cov3d[:, 0, 0], cov3d[:, 0, 1], cov3d[:, 0, 2],
+         cov3d[:, 1, 1], cov3d[:, 1, 2], cov3d[:, 2, 2],
+         prep.opacity, prep.valid.to(torch.float32),
+         prep.rgb[:, 0], prep.rgb[:, 1], prep.rgb[:, 2]],
+        dim=1)
+
+
+@torch.no_grad()
+def build_pair_pack(
+    gaussians: GaussianParams,
+    camera: Camera,
+    config: RasterizerConfig,
+) -> PairPack:
+    """Preprocess + bin at the given pose, gather params per pair ONCE into
+    per-tile windows of ``max_per_tile`` lanes."""
+    prep = preprocess(gaussians, camera, tile_size=config.tile_size,
+                      scale_modifier=config.scale_modifier)
+    bins = bin_gaussians_for(prep, camera, config)
+    pack = _param_pack(gaussians, prep, config)
+    pack = torch.cat([pack, pack.new_zeros((pack.shape[0], 2))], dim=1)
+    return PairPack(params=pack[bins.tile_gid.long()].transpose(1, 2)
+                    .contiguous(),                         # (T, 16, cap)
+                    counts=bins.tile_counts,
+                    overflow=bins.overflow | bins.tile_overflow)
+
+
 @torch.no_grad()
 def build_stream_pair_pack(
     gaussians: GaussianParams,
@@ -143,15 +203,7 @@ def build_stream_pair_pack(
     prep = preprocess(gaussians, camera, tile_size=config.tile_size,
                       scale_modifier=config.scale_modifier)
     sbins = bin_stream_for(prep, camera, config)
-    cov3d = build_cov3d(gaussians.get_scaling, gaussians.get_rotation,
-                        config.scale_modifier)
-    pack = torch.stack(
-        [gaussians.xyz[:, 0], gaussians.xyz[:, 1], gaussians.xyz[:, 2],
-         cov3d[:, 0, 0], cov3d[:, 0, 1], cov3d[:, 0, 2],
-         cov3d[:, 1, 1], cov3d[:, 1, 2], cov3d[:, 2, 2],
-         prep.opacity, prep.valid.to(torch.float32),
-         prep.rgb[:, 0], prep.rgb[:, 1], prep.rgb[:, 2]],
-        dim=1)                                            # (P, 14)
+    pack = _param_pack(gaussians, prep, config)
     # dead positions: zero params -> det == 0 -> gated out of the blend
     return StreamPairPack(
         params=stream_blend.assemble_stream(pack, sbins.gid_of_pos, chunk),
@@ -164,22 +216,27 @@ def build_stream_pair_pack(
 
 
 def render_pose_mode(
-    pack: StreamPairPack,
+    pack,
     camera: Camera,
     config: RasterizerConfig,
     bg: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (color (H,W,3), depth (H,W), alpha (H,W)) at the given pose."""
-    if not isinstance(pack, StreamPairPack):
-        raise NotImplementedError(
-            "only the StreamPairPack layout is ported; the capped PairPack "
-            "needs the pregathered kernels")
+    """-> (color (H,W,3), depth (H,W), alpha (H,W)) at the given pose, from
+    a ``StreamPairPack`` (K1/K2) or a ``PairPack`` (K3/K4)."""
     ts = config.tile_size
     chunk = config.pallas_chunk
+    grid_x = -(-camera.width // ts)
+    if isinstance(pack, PairPack):
+        geom, rgbd = _project_pairs(pack.params, camera)
+        out = blend_pregathered_pallas(pack.counts, geom, rgbd, grid_x, ts,
+                                       chunk=chunk)
+        return composite(out, camera, ts, bg)
+    if not isinstance(pack, StreamPairPack):
+        raise TypeError(f"expected a StreamPairPack or a PairPack, got "
+                        f"{type(pack).__name__}")
     if pack.align != chunk:
         raise ValueError(f"pack aligned to {pack.align}, blend chunk {chunk}: "
                          "the backward needs align == chunk")
-    grid_x = -(-camera.width // ts)
     stream_t = _project_stream(pack.params, camera)
     out = stream_blend.blend_stream_direct(
         stream_t, pack.tstart, pack.walk_counts, pack.kept_al, grid_x, ts,

@@ -203,8 +203,6 @@ def _lib() -> ctypes.CDLL:
     lib.gsl_stream_bwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                                    _P, _P]
     lib.gsl_stream_bwd.restype = _I
-    lib.gsl_error_string.argtypes = [_I]
-    lib.gsl_error_string.restype = ctypes.c_char_p
     return lib
 
 

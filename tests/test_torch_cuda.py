@@ -16,19 +16,24 @@ from gs_localization_torch.core import sh as sh_lib
 from gs_localization_torch.core.camera import Camera
 from gs_localization_torch.core.gaussians import FIELDS, GaussianParams
 from gs_localization_torch.loc import TrackingConfig, refine_pose
+from gs_localization_torch.mapping import train as mtrain
 from gs_localization_torch.raster import RasterizerConfig, rasterize
+from gs_localization_torch.raster import pallas_blend as pb
 from gs_localization_torch.raster import stream_blend as sb
 from gs_localization_torch.raster.pose_mode import (
-    _project_stream, build_stream_pair_pack, render_pose_mode)
+    _project_pairs, _project_stream, build_pair_pack, build_stream_pair_pack,
+    render_pose_mode)
 
 pytestmark = pytest.mark.cuda
 
 CASES = {
     # tiles of several chunks each
-    "multi_chunk": dict(seed=0, n=500, spread=1.0, chunk=32),
+    "multi_chunk": dict(seed=0, n=500, spread=1.0, chunk=32, cap=512),
     # every tile single-chunk, some tiles empty (walk_count == 0)
-    "single_chunk": dict(seed=4, n=40, spread=0.5, chunk=128),
+    "single_chunk": dict(seed=4, n=40, spread=0.5, chunk=128, cap=128),
 }
+TRAINED = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
+           "opacity")
 
 
 @pytest.fixture
@@ -81,7 +86,8 @@ def case(request, cuda_device):
     with torch.no_grad():
         stream = _project_stream(pack.params, cam)
     return dict(arrays=arrays, cfg=cfg, pack=pack, stream=stream,
-                chunk=c["chunk"], device=cuda_device)
+                chunk=c["chunk"], device=cuda_device,
+                pre=cfg.replace(use_stream=False, max_per_tile=c["cap"]))
 
 
 def test_kernels_match_plain(case):
@@ -170,3 +176,91 @@ def test_gaussian_fields_round_trip(cuda_device):
     for f in FIELDS:
         np.testing.assert_allclose(back[f], np.asarray(arrays[f],
                                                        back[f].dtype))
+
+
+# ---- the pregathered layout: K3/K4 ------------------------------------------
+
+def test_pregathered_kernels_match_plain(case):
+    g, cam = _on(case["arrays"], case["device"])
+    pack = build_pair_pack(g, cam, case["pre"])
+    assert not bool(pack.overflow)
+    with torch.no_grad():
+        geom, rgbd = _project_pairs(pack.params, cam)
+    chunk = case["chunk"]
+    args = (pack.counts, geom, rgbd, 6, 16, chunk)
+    before = dict(gsl.LAUNCHES)
+    acc_k, logt_k, resid_k = pb.pregathered_blend_fwd_cuda(*args)
+    acc_p, logt_p, resid_p = pb.pregathered_blend_fwd_plain(*args)
+    assert gsl.LAUNCHES["pregathered_fwd"] == before["pregathered_fwd"] + 1
+    # as K1: sums in another order, log_t held as T = exp(log_t)
+    torch.testing.assert_close(acc_k, acc_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(torch.exp(logt_k), torch.exp(logt_p),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(resid_k[..., 1], resid_p[..., 1])       # k_stop
+    gen = torch.Generator().manual_seed(0)
+    gacc = torch.randn(acc_k.shape, generator=gen).to(case["device"])
+    glogt = (torch.randn(logt_k.shape, generator=gen).to(case["device"])
+             * torch.exp(logt_k))
+    dg_k, dr_k = pb.pregathered_blend_bwd_cuda(*args[:3], gacc, glogt,
+                                               resid_k, 6, 16, chunk)
+    dg_p, dr_p = pb.pregathered_blend_bwd_plain(*args[:3], gacc, glogt, 6,
+                                                16, chunk)
+    torch.cuda.synchronize()
+    assert gsl.LAUNCHES["pregathered_bwd"] == before["pregathered_bwd"] + 1
+    # as K2: the JAX suite's Gaussian-gradient tolerance
+    torch.testing.assert_close(dg_k, dg_p, atol=5e-3, rtol=1e-2)
+    torch.testing.assert_close(dr_k, dr_p, atol=5e-3, rtol=1e-2)
+    # lanes past the count (real ids, summed by the gather adjoint) and the
+    # valid and pad rows are exactly zero
+    past = (torch.arange(geom.shape[2], device=geom.device)[None, :]
+            >= pack.counts[:, None].long())
+    assert (dg_k.transpose(0, 1)[:, past] == 0).all()
+    assert (dr_k.transpose(0, 1)[:, past] == 0).all()
+    assert (dg_k[:, 6:] == 0).all()
+
+
+def test_pregathered_cuda_path_matches_cpu_path(case):
+    """rasterize(use_stream=False) on the card and on the CPU: images, the
+    Gaussian-parameter and the means2d_offset gradients."""
+    cfg = case["pre"]
+    out = []
+    for dev in (case["device"], torch.device("cpu")):
+        g, cam = _on(case["arrays"], dev)
+        params = {f: getattr(g, f).clone().requires_grad_() for f in TRAINED}
+        off = torch.zeros((g.capacity, 2), device=dev, requires_grad=True)
+        r = rasterize(g.replace(**params), cam, cfg, means2d_offset=off)
+        (r.color.sum() + 0.1 * r.depth.sum() + 0.01 * r.alpha.sum()).backward()
+        out.append(([x.detach().cpu() for x in (r.color, r.depth, r.alpha)],
+                    [params[f].grad.cpu() for f in TRAINED] + [off.grad.cpu()]))
+    for x_k, x_p in zip(out[0][0], out[1][0]):
+        torch.testing.assert_close(x_k, x_p, atol=1e-5, rtol=0)
+    for name, g_k, g_p in zip(TRAINED + ("means2d_offset",), out[0][1],
+                              out[1][1]):
+        scale = float(g_p.abs().max())
+        assert scale > 0, name
+        torch.testing.assert_close(g_k / scale, g_p / scale, atol=5e-3,
+                                   rtol=1e-2, msg=name)
+
+
+def test_train_step_cuda_matches_cpu(case):
+    cfg = case["pre"]
+    tau = torch.tensor([0.01, -0.008, 0.012, 0.02, -0.015, 0.01])
+    res = []
+    for dev in (case["device"], torch.device("cpu")):
+        g, cam = _on(case["arrays"], dev)
+        with torch.no_grad():
+            gt = rasterize(g, cam.with_delta(tau.to(dev)), cfg)
+        state = mtrain.init_training(g, mtrain.MapTrainConfig())
+        state, aux = mtrain.train_step(state, cam, gt.color,
+                                       mtrain.MapTrainConfig(), cfg,
+                                       gt_depth=gt.depth)
+        res.append((float(aux["total"]), state))
+    (l_k, s_k), (l_p, s_p) = res
+    assert l_k == pytest.approx(l_p, rel=1e-5)
+    for name in TRAINED:
+        # the first moment is 0.1 x the gradient after one step
+        mu_k, mu_p = s_k.opt_state[name].mu.cpu(), s_p.opt_state[name].mu
+        scale = max(float(mu_p.abs().max()), 1e-30)
+        torch.testing.assert_close(mu_k / scale, mu_p / scale, atol=5e-3,
+                                   rtol=1e-2, msg=name)
+    torch.testing.assert_close(s_k.densify.denom.cpu(), s_p.densify.denom)

@@ -42,8 +42,9 @@ def test_no_jax_imports(path):
 
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
-    assert {"stream_blend.py", "refine.py", "localize.py",
-            "chip_smoke.py"} <= names
+    assert {"stream_blend.py", "refine.py", "localize.py", "pallas_blend.py",
+            "train.py", "densify.py", "train_map.py", "knn.py", "ssim.py",
+            "scene.py", "chip_smoke.py"} <= names
 
 
 def test_imports_without_nvcc_or_triton(tmp_path):
@@ -103,7 +104,26 @@ def test_cpu_on_request(no_cuda):
         gsl.resolve_device("meta")
 
 
+def test_training_entry_points_default_to_cuda(no_cuda):
+    from gs_localization_torch.data.scene import SceneInfo
+    from gs_localization_torch.mapping.train import MapTrainState
+    from gs_localization_torch.pipelines.train_map import train_map
+
+    pts = np.random.default_rng(0).uniform(-1, 1, (8, 3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GaussianParams.from_pcd(pts, np.zeros((8, 3)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MapTrainState.from_numpy({}, 0, 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_map(SceneInfo([], [], pts, np.zeros((8, 3))))
+    g = GaussianParams.from_pcd(pts, np.zeros((8, 3)), sh_degree=0,
+                                device="cpu")
+    assert g.device.type == "cpu" and g.capacity == 8
+
+
 def test_reset_launches():
     gsl.LAUNCHES["stream_fwd"] += 3
+    gsl.LAUNCHES["pregathered_bwd"] += 1
     gsl.reset_launches()
-    assert gsl.LAUNCHES == {"stream_fwd": 0, "stream_bwd": 0}
+    assert gsl.LAUNCHES == {"stream_fwd": 0, "stream_bwd": 0,
+                            "pregathered_fwd": 0, "pregathered_bwd": 0}

@@ -30,3 +30,25 @@ def np_of(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def train_state_to_numpy(state) -> dict:
+    """A JAX ``MapTrainState`` as the arrays of the port's
+    ``MapTrainState.from_numpy``: the Gaussian fields, each group's Adam
+    ``mu``/``nu``/``count`` out of the optax ``multi_transform`` state, the
+    densify stats and the step."""
+    g = state.gaussians
+    out = {f: np.asarray(getattr(g, f)) for f in FIELDS}
+    for name, masked in state.opt_state.inner_states.items():
+        adam = masked.inner_state[0]
+        out[f"mu/{name}"] = np.asarray(adam.mu[name])
+        out[f"nu/{name}"] = np.asarray(adam.nu[name])
+        out[f"count/{name}"] = np.asarray(adam.count)
+        for extra in masked.inner_state[1:]:
+            # the xyz schedule keeps a count of its own, in step with Adam's
+            if "count" in getattr(extra, "_fields", ()):
+                assert int(extra.count) == int(adam.count), name
+    for f in ("grad_accum", "denom", "max_radii"):
+        out[f] = np.asarray(getattr(state.densify, f))
+    out["step"] = np.asarray(state.step)
+    return out
