@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 1. prints the environment (torch, CUDA, the card's name and power limit);
-2. builds the hand-written CUDA kernels from ``gs_localization_torch/csrc``;
+2. builds the hand-written CUDA kernels from ``gs_localization_torch/csrc``
+   and prints, for each of K1-K4 at the launched chunk, the CTAs per SM,
+   registers per thread, shared memory per CTA and spill bytes that the
+   CUDA runtime reports;
 3. holds each kernel against its plain PyTorch version on the same inputs:
    K1/K2 (stream blend) at the bench scene (640x480, 100k Gaussians at SH
    degree 3, fast_k=1, chunk 256, max_pairs = max_render = 2^19) and at a
@@ -13,7 +16,9 @@
    at ``max_per_tile`` = the probed max tile count rounded up to 256, and
    at the shapes of the paths that run them: the training windows (the
    initial and the trained map at the deepest training view, at the
-   training run's ``max_per_tile``) and a PairPack's windows;
+   training run's ``max_per_tile``) and a PairPack's windows; at both
+   training windows also the distance of K4 and of the float32 plain K4
+   from the float64 plain K4;
 4. checks the CUDA path against the plain CPU path on the small scene
    (pose-mode images and the camera-tangent gradient, on the stream pack
    and on the PairPack);
@@ -32,11 +37,14 @@
    snapshot and the exact K3/K4 launch counts are checked;
 8. pose mode's PairPack: 2 perturbed queries through ``localize_queries``
    on ``use_stream=False`` (K3/K4), 50 iterations each;
-9. times each kernel (median of 25 runs, CUDA events) beside its plain
-   version and its bound (this run's walked work: its bytes over the HBM
-   peak, its instructions over the H100's fp32 and special-function issue
-   rates): K1/K2 at the bench shapes, K3/K4 at the training windows (and,
-   beside K1/K2, at the bench windows);
+9. times each kernel (the median of 25 single calls, the kernels line's
+   ``ms``, and the device time per call over 25 calls back to back, its
+   ``device_ms``; CUDA events) beside its plain
+   version (median of 25 single calls) and its bound (this run's walked
+   work: its bytes over the HBM peak, its instructions over the H100's
+   fp32 and special-function issue rates): K1/K2 at the bench shapes,
+   K3/K4 at the training windows (and, beside K1/K2, at the bench
+   windows), with the card's SM clock read before and after;
 10. splits a refinement iteration and a training step into their parts and
    profiles 20 of each (torch.profiler: the device's busy share and the
    device time by kernel).
@@ -138,11 +146,10 @@ def phase(name: str):
     print(f"== {name}: {time.perf_counter() - t0:.1f} s")
 
 
-def smi_line() -> str:
+def smi_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -197,6 +204,70 @@ def small_scene(device):
         sh_degree=1, device=device)
 
 
+def training_views(cam):
+    """The training scene's N_VIEWS cameras: ``cam`` and N_VIEWS - 1
+    copies moved by 0.03 rad and 0.1 m in seeded random directions."""
+    rng_v = np.random.default_rng(11)
+    return [cam] + [perturbed(cam, rng_v, 0.03, 0.1)
+                    for _ in range(N_VIEWS - 1)]
+
+
+def initial_map(g, pipe, device):
+    """The map train_map starts from: ``from_pcd`` of g's points with its
+    DC colours. Returns (points, colors, map)."""
+    from gs_localization_torch.core import sh as sh_lib
+    from gs_localization_torch.core.gaussians import GaussianParams
+
+    points = g.xyz.cpu().numpy()
+    colors = np.clip(sh_lib.sh_dc_to_rgb(
+        g.features_dc[:, 0].cpu().numpy()), 0.0, 1.0)
+    g0 = GaussianParams.from_pcd(
+        points, colors, sh_degree=pipe.sh_degree,
+        capacity=max(int(len(points) * pipe.capacity_multiplier), 1024),
+        device=device)
+    return points, colors, g0
+
+
+def probe_training(g0, cams):
+    """The capacities training needs: a probe of g0 over the training
+    cameras, x1.5 headroom. Returns (raster config, max tile count, max
+    pairs, index of the camera with the deepest tile)."""
+    from gs_localization_torch.raster import RasterizerConfig
+    from gs_localization_torch.raster.rasterize import compute_bins
+
+    probe_cfg = RasterizerConfig(max_pairs=1 << 23, max_per_tile=256,
+                                 pallas_chunk=CHUNK, use_stream=False)
+    mtc, nrend, deep = 0, 0, 0
+    for i, c in enumerate(cams):
+        b = compute_bins(g0, c, probe_cfg)
+        check(not bool(b.overflow), "training probe overflow")
+        if int(b.max_tile_count) > mtc:
+            mtc, deep = int(b.max_tile_count), i
+        nrend = max(nrend, int(b.num_rendered))
+    train_cfg = RasterizerConfig(
+        max_pairs=round_up(1.5 * nrend, 1024),
+        max_per_tile=round_up(1.5 * mtc, 256), pallas_chunk=CHUNK,
+        use_stream=False)
+    return train_cfg, mtc, nrend, deep
+
+
+def bench_windows(g, cam, cfg):
+    """K3's inputs on the bench scene: bin_gaussians at max_per_tile = the
+    probed max tile count rounded up to 256. Returns (bins, geom, rgbd,
+    max tile count, pairs emitted)."""
+    from gs_localization_torch.raster.rasterize import compute_bins
+
+    probe = compute_bins(g, cam, cfg.replace(use_stream=False,
+                                             max_per_tile=4096))
+    mtc = int(probe.max_tile_count)
+    cfg_pre = cfg.replace(use_stream=False,
+                          max_per_tile=max(256, round_up(mtc, 256)))
+    bins, geom, rgbd = pregathered_inputs(g, cam, cfg_pre)
+    check(not bool(bins.overflow) and not bool(bins.tile_overflow),
+          "bench bin_gaussians overflow")
+    return bins, geom, rgbd, mtc, int(probe.num_rendered)
+
+
 def close_err(a, b, atol: float, rtol: float):
     """(max |a-b|, max |a-b| / (atol + rtol |b|)): within tolerance iff the
     second is <= 1."""
@@ -206,6 +277,19 @@ def close_err(a, b, atol: float, rtol: float):
     if d.numel() == 0:
         return 0.0, 0.0
     return float(d.max()), float((d / (atol + rtol * b.double().abs())).max())
+
+
+def flipped(logt_a, logt_b):
+    """(T, 256) pixels on which a pair is applied by one of two walks
+    only: one log T within EPS_BAND of LOG_T_EPS, and the two apart by more
+    than TOL_LOGT."""
+    import torch
+    from gs_localization_torch.raster.constants import LOG_T_EPS
+
+    a, b = logt_a.double()[..., 0], logt_b.double()[..., 0]
+    near = torch.minimum((a - LOG_T_EPS).abs(),
+                         (b - LOG_T_EPS).abs()) <= EPS_BAND
+    return near & ((a - b).abs() > TOL_LOGT)
 
 
 def check_forward(label, kname, out_k, out_p, rgbd_max: float) -> float:
@@ -220,15 +304,12 @@ def check_forward(label, kname, out_k, out_p, rgbd_max: float) -> float:
     held to TOL_LOGT and TOL_FWD. Returns the max abs error, flipped pixels
     included."""
     import torch
-    from gs_localization_torch.raster.constants import LOG_T_EPS
 
     acc_k, logt_k, resid_k = out_k
     acc_p, logt_p, resid_p = out_p
     torch.cuda.synchronize()
     d_lt = (logt_k - logt_p).abs()[..., 0]                  # (T, 256)
-    near = torch.minimum((logt_k - LOG_T_EPS).abs(),
-                         (logt_p - LOG_T_EPS).abs())[..., 0] <= EPS_BAND
-    flip = near & (d_lt > TOL_LOGT)
+    flip = flipped(logt_k, logt_p)
     n_flip = int(flip.sum())
     e_lt = float(torch.where(flip, 0.0, d_lt).max())
     d_t = (torch.exp(logt_k) - torch.exp(logt_p)).abs()[..., 0]
@@ -336,10 +417,49 @@ def pregathered_inputs(g, cam, cfg):
     return bins, geom, rgbd
 
 
-def compare_pregathered(label, counts, geom, rgbd, grid_x, seed):
+def yardstick64(label, args, grid_x, chunk, out_k, out_p, gacc, glogt):
+    """K4 and the float32 plain K4 held against the float64 plain K4, with
+    the cotangents zeroed on pixels that a pair flips between any two of K3,
+    the float32 and the float64 plain forward: which of the two float32
+    walks (log T rebuilt by subtraction, or cumsum) is nearer."""
+    import torch
+    from gs_localization_torch.raster import pallas_blend as pb
+
+    f64 = torch.float64
+    out_64 = pb.pregathered_blend_fwd_plain(*args, grid_x, 16, chunk,
+                                            dtype=f64)
+    flip = (flipped(out_k[1], out_p[1]) | flipped(out_k[1], out_64[1])
+            | flipped(out_p[1], out_64[1]))
+    keep = (~flip).float()
+    ga, gl = gacc * keep[:, None, :], glogt * keep[:, :, None]
+    d_k = pb.pregathered_blend_bwd_cuda(*args, ga, gl, out_k[2], grid_x, 16,
+                                        chunk)
+    d_32 = pb.pregathered_blend_bwd_plain(*args, ga, gl, grid_x, 16, chunk)
+    d_64 = pb.pregathered_blend_bwd_plain(*args, ga, gl, grid_x, 16, chunk,
+                                          dtype=f64)
+    torch.cuda.synchronize()
+
+    def dist(xs, refs):
+        errs = [close_err(x, r, *TOL_BWD) for x, r in zip(xs, refs)]
+        return max(e[0] for e in errs), max(e[1] for e in errs)
+
+    (e_k, n_k), (e_32, n_32), (e_k32, n_k32) = (
+        dist(d_k, d_64), dist(d_32, d_64), dist(d_k, d_32))
+    print(f"[{label}] float64 yardstick (cotangents zeroed on "
+          f"{int(flip.sum())} pixels flipped between any two of K3, plain "
+          f"f32, plain f64): K4 vs plain f64 max|d| {e_k:.3e}, max "
+          f"normalized {n_k:.4e}; plain f32 vs plain f64 {e_32:.3e}, "
+          f"{n_32:.4e}; K4 vs plain f32 {e_k32:.3e}, {n_k32:.4e} (tol atol "
+          f"{TOL_BWD[0]} rtol {TOL_BWD[1]})")
+    check(n_k32 <= 1, f"[{label}] K4 disagrees with its plain version")
+
+
+def compare_pregathered(label, counts, geom, rgbd, grid_x, seed,
+                        yardstick=False):
     """K3 and K4 against their plain versions on one set of windows, and
-    K4's lanes past each count exactly 0; returns the max abs errors and
-    the backward's inputs."""
+    K4's lanes past each count exactly 0 (and, with ``yardstick``, both
+    against the float64 plain version); returns the max abs errors and the
+    backward's inputs."""
     import torch
     from gs_localization_torch.raster import pallas_blend as pb
 
@@ -363,6 +483,8 @@ def compare_pregathered(label, counts, geom, rgbd, grid_x, seed):
           f"counts (must be 0)")
     check(nz_past == 0 and int((dk[0][:, 6:] != 0).sum()) == 0,
           f"[{label}] K4 wrote lanes past the count or the valid/pad rows")
+    if yardstick:
+        yardstick64(label, args, grid_x, chunk, out_k, out_p, gacc, glogt)
     return e_fwd, e_bwd, (gacc, glogt, out_k[2])
 
 
@@ -466,6 +588,23 @@ def time_ms(fn, n: int = N_TIMED) -> float:
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return statistics.median(times)
+
+
+def device_ms(fn, n: int = N_TIMED) -> float:
+    """Device time per call: CUDA events around n calls made back to back
+    after a warm-up, so that the host's enqueue overlaps the card's work."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / n
 
 
 def profile(label: str, fn, n_steps: int) -> None:
@@ -580,9 +719,7 @@ def main() -> None:
 
     import gs_localization_torch as gsl
     from gs_localization_torch import _kernels
-    from gs_localization_torch.core import sh as sh_lib
     from gs_localization_torch.core.camera import Camera
-    from gs_localization_torch.core.gaussians import GaussianParams
     from gs_localization_torch.data.scene import (
         CameraInfo, SceneInfo, compute_scene_extent)
     from gs_localization_torch.loc import (
@@ -599,7 +736,6 @@ def main() -> None:
     from gs_localization_torch.raster.pose_mode import (
         _project_pairs, _project_stream, build_pair_pack,
         build_stream_pair_pack, render_pose_mode)
-    from gs_localization_torch.raster.rasterize import compute_bins
     from gs_localization_torch.sfm.evaluate import pose_errors
 
     t_start = time.perf_counter()
@@ -615,6 +751,12 @@ def main() -> None:
         print(f"kernel build: {time.perf_counter() - t0:.1f} s "
               f"({'cached' if built is None else 'nvcc'}) from "
               f"{[s.name for s in _kernels.sources()]}")
+        for name, info in _kernels.kernel_info(CHUNK).items():
+            print(f"occupancy {name} at chunk {CHUNK}: "
+                  f"{info['ctas_per_sm']} CTAs/SM "
+                  f"({info['ctas_per_sm'] * 8} warps), {info['regs']} "
+                  f"registers/thread, {info['smem']} B shared memory/CTA, "
+                  f"{info['local']} B local/thread")
 
     cfg = RasterizerConfig(max_pairs=MAX_PAIRS, max_per_tile=1024,
                            max_render=MAX_RENDER, fast_k=1,
@@ -654,16 +796,10 @@ def main() -> None:
 
     # ---- K3/K4 vs plain --------------------------------------------------
     with phase("K3/K4 vs plain"):
-        probe = compute_bins(g, cam, cfg.replace(use_stream=False,
-                                                 max_per_tile=4096))
-        mtc_bench = int(probe.max_tile_count)
-        cap_bench = max(256, round_up(mtc_bench, 256))
-        cfg_pre = cfg.replace(use_stream=False, max_per_tile=cap_bench)
-        bins_b, geom_b, rgbd_b = pregathered_inputs(g, cam, cfg_pre)
-        check(not bool(bins_b.overflow) and not bool(bins_b.tile_overflow),
-              "bench bin_gaussians overflow")
+        bins_b, geom_b, rgbd_b, mtc_bench, n_bench = bench_windows(g, cam,
+                                                                   cfg)
         print(f"bench windows: max_tile_count {mtc_bench} -> max_per_tile "
-              f"{cap_bench}, geom {tuple(geom_b.shape)}, {int(probe.num_rendered)}"
+              f"{geom_b.shape[2]}, geom {tuple(geom_b.shape)}, {n_bench}"
               f" pairs emitted")
         err_k3, err_k4, (gacc3, glogt3, resid3) = compare_pregathered(
             "bench", bins_b.tile_counts, geom_b, rgbd_b, grid_x, seed=2)
@@ -746,9 +882,7 @@ def main() -> None:
 
     # ---- training scene: 10 views of the bench map --------------------------
     with phase("training scene"):
-        rng_v = np.random.default_rng(11)
-        views = [cam] + [perturbed(cam, rng_v, 0.03, 0.1)
-                         for _ in range(N_VIEWS - 1)]
+        views = training_views(cam)
         imgs, deps = [], []
         with torch.no_grad():
             for v in views:
@@ -760,37 +894,19 @@ def main() -> None:
         infos = [CameraInfo(uid=i, name=f"view{i}", camera=v)
                  for i, v in enumerate(views)]
         centres = np.stack([v.campos.cpu().numpy() for v in views])
-        points = g.xyz.cpu().numpy()
-        colors = np.clip(sh_lib.sh_dc_to_rgb(
-            g.features_dc[:, 0].cpu().numpy()), 0.0, 1.0)
-        scene = SceneInfo(train_cameras=infos[:N_VIEWS - N_TEST_VIEWS],
-                          test_cameras=infos[N_VIEWS - N_TEST_VIEWS:],
-                          points=points, colors=colors,
-                          extent=compute_scene_extent(centres))
         pipe = TrainPipelineConfig(
             iterations=N_TRAIN, densify_from=50, densification_interval=100,
             densify_until=N_TRAIN + 1, sh_up_interval=100,
             test_iterations=(N_TRAIN,), save_iterations=(N_TRAIN,),
             log_every=50)
-        # the map train_map starts from, and the capacities it needs: a
-        # probe over the training views, x1.5 headroom
-        g0 = GaussianParams.from_pcd(
-            points, colors, sh_degree=pipe.sh_degree,
-            capacity=max(int(len(points) * pipe.capacity_multiplier), 1024),
-            device=dev)
-        probe_cfg = RasterizerConfig(max_pairs=1 << 23, max_per_tile=256,
-                                     pallas_chunk=CHUNK, use_stream=False)
-        mtc, nrend, deep = 0, 0, 0
-        for info in scene.train_cameras:
-            b = compute_bins(g0, info.camera, probe_cfg)
-            check(not bool(b.overflow), "training probe overflow")
-            if int(b.max_tile_count) > mtc:
-                mtc, deep = int(b.max_tile_count), info.uid
-            nrend = max(nrend, int(b.num_rendered))
-        train_cfg = RasterizerConfig(
-            max_pairs=round_up(1.5 * nrend, 1024),
-            max_per_tile=round_up(1.5 * mtc, 256), pallas_chunk=CHUNK,
-            use_stream=False)
+        # the map train_map starts from, and the capacities it needs
+        points, colors, g0 = initial_map(g, pipe, dev)
+        scene = SceneInfo(train_cameras=infos[:N_VIEWS - N_TEST_VIEWS],
+                          test_cameras=infos[N_VIEWS - N_TEST_VIEWS:],
+                          points=points, colors=colors,
+                          extent=compute_scene_extent(centres))
+        train_cfg, mtc, nrend, deep = probe_training(
+            g0, [i.camera for i in scene.train_cameras])
         print(f"training scene: {len(scene.train_cameras)} train + "
               f"{len(scene.test_cameras)} held-out views, extent "
               f"{scene.extent:.4f}; from_pcd map capacity {g0.capacity}; "
@@ -809,7 +925,8 @@ def main() -> None:
               f"{int(c_t.max())} ({-(-int(c_t.max()) // CHUNK)} chunks), "
               f"median {int(c_t.median())}, geom {tuple(geom_t.shape)}")
         e3, e4, (gacc_t, glogt_t, resid_t) = compare_pregathered(
-            "train-initial", c_t, geom_t, rgbd_t, grid_x, seed=4)
+            "train-initial", c_t, geom_t, rgbd_t, grid_x, seed=4,
+            yardstick=True)
         err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
 
     # ---- layout cross-check at full width ------------------------------------
@@ -948,7 +1065,7 @@ def main() -> None:
               f"{int(c_f.max())}, tile overflow {bool(bins_f.tile_overflow)},"
               f" geom {tuple(geom_f.shape)}")
         e3, e4, _ = compare_pregathered("train-final", c_f, geom_f, rgbd_f,
-                                        grid_x, seed=5)
+                                        grid_x, seed=5, yardstick=True)
         err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
         del bins_f, geom_f, rgbd_f
 
@@ -981,33 +1098,38 @@ def main() -> None:
 
     # ---- timing at the bench shapes -----------------------------------------
     with phase("timing"):
+        clocks = "clocks.sm,clocks.max.sm"
+        print(f"SM clock before timing ({clocks}): {smi_line(clocks)}")
         args = (stream_t, pack.tstart, pack.walk_counts)
-        k1_ms = time_ms(lambda: sb.stream_blend_fwd_cuda(*args, grid_x, 16,
-                                                         CHUNK))
+        bargs = (bins_b.tile_counts, geom_b, rgbd_b)
+        pargs = (bins_t.tile_counts, geom_t, rgbd_t)
+        # kernel -> (device time per call, median single call): K1/K2 and
+        # K3/K4 at the bench shapes (the same walked work), K3/K4 at the
+        # training path's windows (the kernels line's numbers)
+        calls = {
+            "K1": lambda: sb.stream_blend_fwd_cuda(*args, grid_x, 16, CHUNK),
+            "K2": lambda: sb.stream_blend_bwd_cuda(
+                *args, gacc, glogt, resid, grid_x, 16, CHUNK),
+            "K3 bench": lambda: pb.pregathered_blend_fwd_cuda(
+                *bargs, grid_x, 16, CHUNK),
+            "K4 bench": lambda: pb.pregathered_blend_bwd_cuda(
+                *bargs, gacc3, glogt3, resid3, grid_x, 16, CHUNK),
+            "K3": lambda: pb.pregathered_blend_fwd_cuda(
+                *pargs, grid_x, 16, CHUNK),
+            "K4": lambda: pb.pregathered_blend_bwd_cuda(
+                *pargs, gacc_t, glogt_t, resid_t, grid_x, 16, CHUNK),
+        }
+        tk = {name: (device_ms(fn), time_ms(fn)) for name, fn in calls.items()}
         k1p_ms = time_ms(lambda: sb.stream_blend_fwd_plain(*args, grid_x, 16,
                                                            CHUNK))
-        k2_ms = time_ms(lambda: sb.stream_blend_bwd_cuda(
-            *args, gacc, glogt, resid, grid_x, 16, CHUNK))
         k2p_ms = time_ms(lambda: sb.stream_blend_bwd_plain(
             *args, gacc, glogt, grid_x, 16, CHUNK))
-        work12 = walked_work(stream_t, pack, resid, grid_x)
-        # K3/K4 on the bench windows: the same walked work as K1/K2
-        bargs = (bins_b.tile_counts, geom_b, rgbd_b)
-        k3b_ms = time_ms(lambda: pb.pregathered_blend_fwd_cuda(
-            *bargs, grid_x, 16, CHUNK))
-        k4b_ms = time_ms(lambda: pb.pregathered_blend_bwd_cuda(
-            *bargs, gacc3, glogt3, resid3, grid_x, 16, CHUNK))
-        work34b = pregathered_work(*bargs, resid3, grid_x)
-        # K3/K4 on the training path's windows: the kernels line's numbers
-        pargs = (bins_t.tile_counts, geom_t, rgbd_t)
-        k3_ms = time_ms(lambda: pb.pregathered_blend_fwd_cuda(
-            *pargs, grid_x, 16, CHUNK))
         k3p_ms = time_ms(lambda: pb.pregathered_blend_fwd_plain(
             *pargs, grid_x, 16, CHUNK))
-        k4_ms = time_ms(lambda: pb.pregathered_blend_bwd_cuda(
-            *pargs, gacc_t, glogt_t, resid_t, grid_x, 16, CHUNK))
         k4p_ms = time_ms(lambda: pb.pregathered_blend_bwd_plain(
             *pargs, gacc_t, glogt_t, grid_x, 16, CHUNK))
+        work12 = walked_work(stream_t, pack, resid, grid_x)
+        work34b = pregathered_work(*bargs, resid3, grid_x)
         work34 = pregathered_work(*pargs, resid_t, grid_x)
         for label, wk in (("K1/K2 bench", work12), ("K3/K4 bench", work34b),
                           ("K3/K4 training", work34)):
@@ -1019,11 +1141,18 @@ def main() -> None:
                   f"instructions {wk['fwd_ins']}; bwd {wk['bwd_bytes']} "
                   f"bytes, {wk['bwd_ins']}; bound fwd {b_fwd:.4f} ms, bwd "
                   f"{b_bwd:.4f} ms")
-        print(f"bench shapes: K1 {k1_ms:.4f} ms (plain {k1p_ms:.3f}), K2 "
-              f"{k2_ms:.4f} ms (plain {k2p_ms:.3f}), K3 {k3b_ms:.4f} ms, K4 "
-              f"{k4b_ms:.4f} ms")
-        print(f"training shapes (cap {geom_t.shape[2]}): K3 {k3_ms:.4f} ms "
-              f"(plain {k3p_ms:.3f}), K4 {k4_ms:.4f} ms (plain {k4p_ms:.3f})")
+        def shown(name):
+            dev_ms, one_ms = tk[name]
+            return f"{dev_ms:.4f} ms (single call {one_ms:.4f})"
+
+        print(f"bench shapes, device time per call over {N_TIMED} calls back "
+              f"to back (and the median single call, host enqueue "
+              f"included): K1 {shown('K1')}, plain {k1p_ms:.3f}; K2 "
+              f"{shown('K2')}, plain {k2p_ms:.3f}; K3 {shown('K3 bench')}; "
+              f"K4 {shown('K4 bench')}")
+        print(f"training shapes (cap {geom_t.shape[2]}): K3 {shown('K3')}, "
+              f"plain {k3p_ms:.3f}; K4 {shown('K4')}, plain {k4p_ms:.3f}")
+        print(f"SM clock after timing ({clocks}): {smi_line(clocks)}")
 
     # ---- where a refinement iteration's and a training step's time goes -----
     with phase("breakdown and profiles"):
@@ -1047,7 +1176,7 @@ def main() -> None:
         print(f"breakdown refine: rebin (preprocess + bin_stream + gather) "
               f"{rebin_ms:.3f} ms, once per {tcfg.rebin_every} iterations; "
               f"render + loss + backward {step_ms:.3f} ms, of which K1 "
-              f"{k1_ms:.3f} and K2 {k2_ms:.3f}")
+              f"{tk['K1'][0]:.3f} and K2 {tk['K2'][0]:.3f}")
         profile("refine", lambda: refine_pose(
             g, q0.camera, img0, mask0, tcfg.replace(num_iters=20), cfg,
             gt_depth=dep0), 20)
@@ -1071,13 +1200,14 @@ def main() -> None:
               f"{trained.capacity} slots ({int(trained.num_live)} live)")
         profile("train", train_steps, 20)
 
-    def entry(name, source, replaces, n_launch, err, ms, plain_ms, byts,
+    def entry(name, source, replaces, n_launch, err, times, plain_ms, byts,
               ops_s):
         t_bytes, t_ops = byts / PEAK_HBM * 1e3, ops_s * 1e3
         return {"name": name, "route": "cuda",
                 "source": f"gs_localization_torch/csrc/{source}",
                 "replaces": replaces, "launches": n_launch,
-                "max_abs_err": err, "ms": ms, "kernel_ms": ms,
+                "max_abs_err": err, "ms": times[1], "kernel_ms": times[1],
+                "device_ms": times[0],
                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None}
@@ -1085,19 +1215,19 @@ def main() -> None:
     kernels = [
         entry("stream_fwd", "stream_blend.cu",
               "gs_localization_tpu/raster/stream_blend.py:85",
-              launches_loc["stream_fwd"], err_k1, k1_ms, k1p_ms,
+              launches_loc["stream_fwd"], err_k1, tk["K1"], k1p_ms,
               work12["fwd_bytes"], work12["fwd_ops_s"]),
         entry("stream_bwd", "stream_blend.cu",
               "gs_localization_tpu/raster/stream_blend.py:161",
-              launches_loc["stream_bwd"], err_k2, k2_ms, k2p_ms,
+              launches_loc["stream_bwd"], err_k2, tk["K2"], k2p_ms,
               work12["bwd_bytes"], work12["bwd_ops_s"]),
         entry("pregathered_fwd", "pallas_blend.cu",
               "gs_localization_tpu/raster/pallas_blend.py:82",
-              launches_train["pregathered_fwd"], err_k3, k3_ms, k3p_ms,
+              launches_train["pregathered_fwd"], err_k3, tk["K3"], k3p_ms,
               work34["fwd_bytes"], work34["fwd_ops_s"]),
         entry("pregathered_bwd", "pallas_blend.cu",
               "gs_localization_tpu/raster/pallas_blend.py:145",
-              launches_train["pregathered_bwd"], err_k4, k4_ms, k4p_ms,
+              launches_train["pregathered_bwd"], err_k4, tk["K4"], k4p_ms,
               work34["bwd_bytes"], work34["bwd_ops_s"]),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")

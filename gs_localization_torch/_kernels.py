@@ -98,4 +98,29 @@ def load() -> ctypes.CDLL:
         _LIB = ctypes.CDLL(str(library_path()))
         _LIB.gsl_error_string.argtypes = [ctypes.c_int]
         _LIB.gsl_error_string.restype = ctypes.c_char_p
+        _LIB.gsl_kernel_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
+        _LIB.gsl_kernel_info.restype = ctypes.c_int
     return _LIB
+
+
+KERNELS = ("K1 stream_fwd", "K2 stream_bwd", "K3 pregathered_fwd",
+           "K4 pregathered_bwd")
+
+
+def kernel_info(chunk: int) -> dict:
+    """For each of K1-K4 at ``chunk``, what the CUDA runtime reports:
+    CTAs per SM at 256 threads (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers per thread, shared memory per CTA (static + dynamic, bytes)
+    and local memory per thread (spills, bytes)."""
+    lib = load()
+    info = {}
+    for which, name in enumerate(KERNELS):
+        out = (ctypes.c_int * 4)()
+        rc = lib.gsl_kernel_info(which, chunk, out)
+        if rc != 0:
+            raise RuntimeError(f"kernel info of {name}: CUDA error {rc} "
+                               f"({lib.gsl_error_string(rc).decode()})")
+        info[name] = dict(ctas_per_sm=out[0], regs=out[1], smem=out[2],
+                          local=out[3])
+    return info

@@ -141,6 +141,11 @@ stream_bwd_kernel(const int* __restrict__ tstart, const int* __restrict__ wcount
 
 }  // namespace
 
+int gsl::stream_kernel_info(int which, int chunk, int* out) {
+  if (which == 0) return kernel_info(stream_fwd_kernel, fwd_smem(chunk), out);
+  return kernel_info(stream_bwd_kernel, bwd_smem(chunk), out);
+}
+
 extern "C" {
 
 int gsl_stream_fwd(const int* tstart, const int* wcount, const float* stream,

@@ -41,7 +41,6 @@ from .stream_blend import (_blocks, _check, _fwd_block, _pixel_coords,
 _GEOM_ROWS = 8
 _RGBD_ROWS = 4
 _TILE = 16          # the kernels run one 256-thread CTA per 16x16 tile
-_MAX_CHUNK = 512    # K4 shared memory: 368 * chunk bytes <= 227 KB
 
 
 # ---------------------------------------------------------------------------
@@ -65,14 +64,16 @@ def _window_block(geom, rgbd, count, chunk: int):
 
 def pregathered_blend_fwd_plain(counts: torch.Tensor, geom: torch.Tensor,
                                 rgbd: torch.Tensor, grid_x: int, ts: int,
-                                chunk: int):
+                                chunk: int, dtype=torch.float32):
     """K3's outputs in plain PyTorch: accum (T,4,npix), log_t (T,npix,1),
-    resid (T,npix,2) = [log_full, k_stop]."""
+    resid (T,npix,2) = [log_full, k_stop], computed in ``dtype`` (float64
+    is the yardstick for the float32 versions)."""
     num_tiles, _, cap = geom.shape
     npix = ts * ts
     count = _counts(counts, cap)
     tiles = torch.arange(num_tiles, device=geom.device)
-    out = dict(dtype=torch.float32, device=geom.device)
+    geom, rgbd = geom.to(dtype), rgbd.to(dtype)
+    out = dict(dtype=dtype, device=geom.device)
     accum = torch.zeros((num_tiles, 4, npix), **out)
     log_t = torch.zeros((num_tiles, npix, 1), **out)
     resid = torch.zeros((num_tiles, npix, 2), **out)
@@ -84,21 +85,23 @@ def pregathered_blend_fwd_plain(counts: torch.Tensor, geom: torch.Tensor,
         accum[lo:hi] = acc
         log_t[lo:hi, :, 0] = log_app
         resid[lo:hi, :, 0] = log_full
-        resid[lo:hi, :, 1] = k_stop.to(torch.float32)[:, None]
+        resid[lo:hi, :, 1] = k_stop.to(dtype)[:, None]
     return accum, log_t, resid
 
 
 def pregathered_blend_bwd_plain(counts: torch.Tensor, geom: torch.Tensor,
                                 rgbd: torch.Tensor, gacc: torch.Tensor,
                                 glogt: torch.Tensor, grid_x: int, ts: int,
-                                chunk: int):
+                                chunk: int, dtype=torch.float32):
     """K4's (dgeom (T,8,cap), drgbd (T,4,cap)) in plain PyTorch: autograd
-    through the plain forward, one block of tiles at a time. Lanes past a
-    tile's count or its last visited chunk are zero."""
+    through the plain forward, one block of tiles at a time, in ``dtype``.
+    Lanes past a tile's count or its last visited chunk are zero."""
     num_tiles, _, cap = geom.shape
     npix = ts * ts
     count = _counts(counts, cap)
     tiles = torch.arange(num_tiles, device=geom.device)
+    geom, rgbd = geom.to(dtype), rgbd.to(dtype)
+    gacc, glogt = gacc.to(dtype), glogt.to(dtype)
     dgeom = torch.zeros_like(geom)
     drgbd = torch.zeros_like(rgbd)
     for lo, hi in _blocks(num_tiles, npix, chunk):
@@ -131,13 +134,22 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _kernels.load()
-    lib.gsl_pregathered_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                        _P, _P]
+    lib.gsl_pregathered_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P,
+                                        _P, _P, _P]
     lib.gsl_pregathered_fwd.restype = _I
-    lib.gsl_pregathered_bwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                        _P, _P, _P, _P]
+    lib.gsl_pregathered_bwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P,
+                                        _P, _P, _P, _P, _P]
     lib.gsl_pregathered_bwd.restype = _I
     return lib
+
+
+def tile_order(counts: torch.Tensor, cap: int) -> torch.Tensor:
+    """The kernels' tile order, deepest first: a stable descending argsort
+    of the clamped counts, as int32 (the plain version of the order the
+    kernels compute on the card). Block b walks tile ``order[b]``; outputs
+    stay indexed by tile, so the order changes only when each tile runs."""
+    return torch.argsort(_counts(counts, cap), descending=True,
+                         stable=True).to(torch.int32)
 
 
 def _check_common(counts, geom, rgbd, ts: int, chunk: int) -> None:
@@ -151,9 +163,9 @@ def _check_common(counts, geom, rgbd, ts: int, chunk: int) -> None:
         raise ValueError(f"geom: shape {tuple(geom.shape)}, expected "
                          f"(T, {_GEOM_ROWS}, cap)")
     num_tiles, _, cap = geom.shape
-    if not 1 <= chunk <= _MAX_CHUNK or cap % chunk:
-        raise ValueError(f"chunk must lie in [1, {_MAX_CHUNK}] and divide "
-                         f"cap {cap}, got {chunk}")
+    if chunk < 1 or cap % chunk:
+        raise ValueError(f"chunk must be positive and divide cap {cap}, got "
+                         f"{chunk}")
     dev = geom.device
     _check(geom, "geom", torch.float32, geom.shape, dev)
     _check(rgbd, "rgbd", torch.float32, (num_tiles, _RGBD_ROWS, cap), dev)
@@ -161,12 +173,17 @@ def _check_common(counts, geom, rgbd, ts: int, chunk: int) -> None:
 
 
 def pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x: int, ts: int,
-                               chunk: int):
-    """Launch K3: -> accum (T,4,npix), log_t (T,npix,1), resid (T,npix,2)."""
+                               chunk: int, order=None):
+    """Launch K3: -> accum (T,4,npix), log_t (T,npix,1), resid (T,npix,2).
+    ``order``, an int32 (T,) tensor if given, receives the tile order the
+    kernel ran in (scratch otherwise)."""
     _check_common(counts, geom, rgbd, ts, chunk)
     lib = _lib()
     num_tiles, _, cap = geom.shape
     npix = ts * ts
+    if order is None:
+        order = torch.empty_like(counts)
+    _check(order, "order", torch.int32, (num_tiles,), geom.device)
     out = dict(dtype=torch.float32, device=geom.device)
     accum = torch.empty((num_tiles, 4, npix), **out)
     log_t = torch.empty((num_tiles, npix, 1), **out)
@@ -174,9 +191,9 @@ def pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x: int, ts: int,
     with torch.cuda.device(geom.device):
         cs = torch.cuda.current_stream().cuda_stream
         rc = lib.gsl_pregathered_fwd(
-            counts.data_ptr(), geom.data_ptr(), rgbd.data_ptr(), num_tiles,
-            cap, grid_x, chunk, accum.data_ptr(), log_t.data_ptr(),
-            resid.data_ptr(), cs)
+            counts.data_ptr(), order.data_ptr(), geom.data_ptr(),
+            rgbd.data_ptr(), num_tiles, cap, grid_x, chunk, accum.data_ptr(),
+            log_t.data_ptr(), resid.data_ptr(), cs)
     _raise_on(lib, rc, "pregathered blend forward launch")
     LAUNCHES["pregathered_fwd"] += 1
     return accum, log_t, resid
@@ -196,12 +213,14 @@ def pregathered_blend_bwd_cuda(counts, geom, rgbd, gacc, glogt, resid,
     lib = _lib()
     dgeom = torch.empty_like(geom)
     drgbd = torch.empty_like(rgbd)
+    order = torch.empty_like(counts)
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream().cuda_stream
         rc = lib.gsl_pregathered_bwd(
-            counts.data_ptr(), geom.data_ptr(), rgbd.data_ptr(), num_tiles,
-            cap, grid_x, chunk, gacc.data_ptr(), glogt.data_ptr(),
-            resid.data_ptr(), dgeom.data_ptr(), drgbd.data_ptr(), cs)
+            counts.data_ptr(), order.data_ptr(), geom.data_ptr(),
+            rgbd.data_ptr(), num_tiles, cap, grid_x, chunk, gacc.data_ptr(),
+            glogt.data_ptr(), resid.data_ptr(), dgeom.data_ptr(),
+            drgbd.data_ptr(), cs)
     _raise_on(lib, rc, "pregathered blend backward launch")
     LAUNCHES["pregathered_bwd"] += 1
     return dgeom, drgbd

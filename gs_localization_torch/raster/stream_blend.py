@@ -63,34 +63,53 @@ def _pixel_coords(tiles: torch.Tensor, grid_x: int, ts: int):
     return px.to(torch.float32), py.to(torch.float32)
 
 
-def _chunk_alpha(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
-                 lane_ok: torch.Tensor) -> torch.Tensor:
-    """Gated alpha (B, npix, G) of one chunk g (16, B, G); same operation
-    order as the kernels' gate."""
+def _power_araw(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     x, y = g[0][:, None, :], g[1][:, None, :]
     ca, cb, cc = g[2][:, None, :], g[3][:, None, :], g[4][:, None, :]
-    opa, vld = g[5][:, None, :], g[6][:, None, :]
     dx = x - px[:, :, None]
     dy = y - py[:, :, None]
     power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-    araw = opa * torch.exp(torch.clamp_max(power, 0.0))
-    gate = ((power <= 0.0) & (araw >= ALPHA_MIN) & (vld > 0.5)
+    return power, g[5][:, None, :] * torch.exp(torch.clamp_max(power, 0.0))
+
+
+def _chunk_alpha(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                 lane_ok: torch.Tensor) -> torch.Tensor:
+    """Gated alpha (B, npix, G) of one chunk g (16, B, G); same operation
+    order as the kernels' gate.
+
+    In a wider dtype than float32 (the yardstick the float32 walks are read
+    against) the threshold tests -- the gate and the clamp at ALPHA_MAX --
+    are taken on the float32 values, as the contract defines them, so that
+    the two differ by the rounding of the blend and not by which pairs
+    pass."""
+    power, araw = _power_araw(g, px, py)
+    vld = g[6][:, None, :]
+    if g.dtype == torch.float32:
+        gate = ((power <= 0.0) & (araw >= ALPHA_MIN) & (vld > 0.5)
+                & lane_ok[:, None, :])
+        return torch.where(gate, torch.clamp_max(araw, ALPHA_MAX),
+                           torch.zeros_like(araw))
+    with torch.no_grad():
+        p32, a32 = _power_araw(g.float(), px.float(), py.float())
+    gate = ((p32 <= 0.0) & (a32 >= ALPHA_MIN) & (vld > 0.5)
             & lane_ok[:, None, :])
-    return torch.where(gate, torch.clamp_max(araw, ALPHA_MAX),
-                       torch.zeros_like(araw))
+    alpha = torch.where(a32 < ALPHA_MAX, araw, torch.full_like(araw,
+                                                               ALPHA_MAX))
+    return torch.where(gate, alpha, torch.zeros_like(araw))
 
 
 def _fwd_block(win: torch.Tensor, count: torch.Tensor, px: torch.Tensor,
                py: torch.Tensor, chunk: int):
     """Blend one block of tiles over their gathered windows
-    win (16, B, n_chunks*chunk). Returns accum (B,4,npix), log_app (B,npix),
-    log_full (B,npix), k_stop (B,)."""
+    win (16, B, n_chunks*chunk), in win's dtype. Returns accum (B,4,npix),
+    log_app (B,npix), log_full (B,npix), k_stop (B,)."""
     bsz, npix = px.shape
-    dev = win.device
+    dev, dtype = win.device, win.dtype
+    px, py = px.to(dtype), py.to(dtype)
     n_chunks = torch.div(count + chunk - 1, chunk, rounding_mode="floor")
-    log_full = torch.zeros((bsz, npix), dtype=torch.float32, device=dev)
+    log_full = torch.zeros((bsz, npix), dtype=dtype, device=dev)
     log_app = torch.zeros_like(log_full)
-    acc = torch.zeros((bsz, 4, npix), dtype=torch.float32, device=dev)
+    acc = torch.zeros((bsz, 4, npix), dtype=dtype, device=dev)
     k_stop = torch.zeros((bsz,), dtype=torch.int64, device=dev)
     lanes = torch.arange(chunk, device=dev)
     for k in range(win.shape[2] // chunk):

@@ -20,6 +20,7 @@ from gs_localization_torch.mapping import train as mtrain
 from gs_localization_torch.raster import RasterizerConfig, rasterize
 from gs_localization_torch.raster import pallas_blend as pb
 from gs_localization_torch.raster import stream_blend as sb
+from gs_localization_torch.raster.constants import LOG_T_EPS
 from gs_localization_torch.raster.pose_mode import (
     _project_pairs, _project_stream, build_pair_pack, build_stream_pair_pack,
     render_pose_mode)
@@ -34,6 +35,17 @@ CASES = {
 }
 TRAINED = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
            "opacity")
+# K3/K4 against their plain versions at the edge windows, as chip_smoke.py
+# holds them at the training windows: accum
+# (atol, rtol); log_t atol off the "flipped" pixels (a pair within rounding
+# of log(1e-4) of LOG_T_EPS, applied by one summation order only), whose T
+# and accum get their own bounds; gradients (atol, rtol) with the flipped
+# pixels' cotangents zeroed
+TOL_FWD = (1e-4, 1e-4)
+TOL_LOGT = 1e-4
+EPS_BAND = 1e-4
+TOL_BWD = (5e-3, 1e-2)
+EDGE_GRID = (4, 3)
 
 
 @pytest.fixture
@@ -180,43 +192,122 @@ def test_gaussian_fields_round_trip(cuda_device):
 
 # ---- the pregathered layout: K3/K4 ------------------------------------------
 
+def edge_windows(chunk: int, seed: int = 0):
+    """Seeded pregathered windows (numpy) of EDGE_GRID tiles at cap = 8
+    chunks, whose counts sit at the kernels' edges, in shuffled order: 0;
+    1, 63, 65 and 255 (ending inside a 64-lane piece); 64 and 128 (on a
+    piece's end); the cap; 7 chunks and 8 lanes; and a tile of opaque
+    splats that saturates in its first chunk (k_stop 1, later chunks
+    unvisited). Deep tiles hold faint splats and walk every chunk."""
+    rng = np.random.default_rng(seed)
+    gx, gy = EDGE_GRID
+    cap = 8 * chunk
+    counts = np.array([65, 0, cap, 1, 255, 63, 7 * chunk + 8, cap, 300, 64,
+                       128, 4 * chunk + 5], np.int32)
+    t = np.arange(gx * gy)
+    ox = ((t % gx) * 16 + 7.5)[:, None]
+    oy = ((t // gx) * 16 + 7.5)[:, None]
+    shape = (len(t), cap)
+    x = ox + rng.uniform(-14, 14, shape)
+    y = oy + rng.uniform(-14, 14, shape)
+    sa = rng.uniform(0.02, 0.4, shape)
+    sc = rng.uniform(0.02, 0.4, shape)
+    b = rng.uniform(-0.5, 0.5, shape) * np.sqrt(sa * sc)
+    opa = rng.uniform(0.05, 0.6, shape)
+    deep = counts > 2 * chunk
+    opa[deep] = rng.uniform(0.004, 0.03, (int(deep.sum()), cap))
+    x[7], y[7] = ox[7] + rng.uniform(-2, 2, cap), oy[7] + rng.uniform(-2, 2, cap)
+    sa[7], sc[7], b[7], opa[7] = 0.005, 0.005, 0.0, 0.95
+    valid = (rng.uniform(size=shape) > 0.1).astype(np.float64)
+    geom = np.stack([x, y, sa, b, sc, opa, valid, np.zeros(shape)], 1)
+    rgbd = np.concatenate([rng.uniform(0, 1, (len(t), 3, cap)),
+                           rng.uniform(1, 5, (len(t), 1, cap))], 1)
+    return counts, geom.astype(np.float32), rgbd.astype(np.float32)
+
+
+def hold_pregathered(counts, geom, rgbd, grid_x, chunk, flips=False):
+    """K3 and K4 against their plain versions, k_stop equal on every tile,
+    the tile order the card computed, the same bits from a second launch,
+    and K4's lanes at or past each tile's walked end (and its valid and pad
+    rows) exactly 0. The forward is held as K1 is (accum and T at 1e-5);
+    with ``flips``, at chip_smoke.py's tolerances with its accounting of
+    the flipped pixels. Returns K3's resid."""
+    args = (counts, geom, rgbd, grid_x, 16, chunk)
+    before = dict(gsl.LAUNCHES)
+    order = torch.empty_like(counts)
+    out_k = pb.pregathered_blend_fwd_cuda(*args, order=order)
+    again = pb.pregathered_blend_fwd_cuda(*args)
+    # the order the card computed: deepest first, ties in tile order
+    assert torch.equal(order.cpu(), pb.tile_order(counts.cpu(), geom.shape[2]))
+    out_p = pb.pregathered_blend_fwd_plain(*args)
+    assert gsl.LAUNCHES["pregathered_fwd"] == before["pregathered_fwd"] + 2
+    assert all(torch.equal(a, b) for a, b in zip(out_k, again))
+    (acc_k, logt_k, resid_k), (acc_p, logt_p, resid_p) = out_k, out_p
+    assert torch.equal(resid_k[..., 1], resid_p[..., 1])       # k_stop
+    keep = torch.ones_like(logt_k[..., 0])
+    if flips:
+        d_lt = (logt_k - logt_p).abs()[..., 0]
+        near = torch.minimum((logt_k - LOG_T_EPS).abs(),
+                             (logt_p - LOG_T_EPS).abs())[..., 0] <= EPS_BAND
+        keep = (~(near & (d_lt > TOL_LOGT))).float()
+        assert float((d_lt * keep).max()) <= TOL_LOGT
+        torch.testing.assert_close(acc_k * keep[:, None],
+                                   acc_p * keep[:, None],
+                                   atol=TOL_FWD[0], rtol=TOL_FWD[1])
+        d_t = (torch.exp(logt_k) - torch.exp(logt_p)).abs()[..., 0]
+        assert float((d_t * (1 - keep)).max()) <= 1e-4
+        d_acc = (acc_k - acc_p).abs() * (1 - keep)[:, None]
+        assert float(d_acc.max()) <= 1e-4 * float(rgbd.abs().max())
+    else:
+        # as K1: sums in another order, log_t held as T = exp(log_t)
+        torch.testing.assert_close(acc_k, acc_p, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(torch.exp(logt_k), torch.exp(logt_p),
+                                   atol=1e-5, rtol=1e-5)
+    gen = torch.Generator().manual_seed(0)
+    gacc = torch.randn(acc_k.shape, generator=gen).to(geom.device)
+    glogt = (torch.randn(logt_k.shape, generator=gen).to(geom.device)
+             * torch.exp(logt_k))
+    gacc, glogt = gacc * keep[:, None], glogt * keep[..., None]
+    d_k = pb.pregathered_blend_bwd_cuda(*args[:3], gacc, glogt, resid_k,
+                                        grid_x, 16, chunk)
+    d_again = pb.pregathered_blend_bwd_cuda(*args[:3], gacc, glogt, resid_k,
+                                            grid_x, 16, chunk)
+    d_p = pb.pregathered_blend_bwd_plain(*args[:3], gacc, glogt, grid_x, 16,
+                                         chunk)
+    torch.cuda.synchronize()
+    assert gsl.LAUNCHES["pregathered_bwd"] == before["pregathered_bwd"] + 2
+    assert all(torch.equal(a, b) for a, b in zip(d_k, d_again))
+    for k, p in zip(d_k, d_p):
+        torch.testing.assert_close(k, p, atol=TOL_BWD[0], rtol=TOL_BWD[1])
+    # lanes past the count (real ids, summed by the gather adjoint) or past
+    # the last visited chunk, and the valid and pad rows, are exactly zero
+    cap = geom.shape[2]
+    end = torch.minimum(counts.long().clamp(0, cap),
+                        resid_k[:, 0, 1].long() * chunk)
+    past = torch.arange(cap, device=geom.device)[None, :] >= end[:, None]
+    assert all(bool((d.transpose(0, 1)[:, past] == 0).all()) for d in d_k)
+    assert (d_k[0][:, 6:] == 0).all()
+    return resid_k
+
+
 def test_pregathered_kernels_match_plain(case):
     g, cam = _on(case["arrays"], case["device"])
     pack = build_pair_pack(g, cam, case["pre"])
     assert not bool(pack.overflow)
     with torch.no_grad():
         geom, rgbd = _project_pairs(pack.params, cam)
-    chunk = case["chunk"]
-    args = (pack.counts, geom, rgbd, 6, 16, chunk)
-    before = dict(gsl.LAUNCHES)
-    acc_k, logt_k, resid_k = pb.pregathered_blend_fwd_cuda(*args)
-    acc_p, logt_p, resid_p = pb.pregathered_blend_fwd_plain(*args)
-    assert gsl.LAUNCHES["pregathered_fwd"] == before["pregathered_fwd"] + 1
-    # as K1: sums in another order, log_t held as T = exp(log_t)
-    torch.testing.assert_close(acc_k, acc_p, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(torch.exp(logt_k), torch.exp(logt_p),
-                               atol=1e-5, rtol=1e-5)
-    assert torch.equal(resid_k[..., 1], resid_p[..., 1])       # k_stop
-    gen = torch.Generator().manual_seed(0)
-    gacc = torch.randn(acc_k.shape, generator=gen).to(case["device"])
-    glogt = (torch.randn(logt_k.shape, generator=gen).to(case["device"])
-             * torch.exp(logt_k))
-    dg_k, dr_k = pb.pregathered_blend_bwd_cuda(*args[:3], gacc, glogt,
-                                               resid_k, 6, 16, chunk)
-    dg_p, dr_p = pb.pregathered_blend_bwd_plain(*args[:3], gacc, glogt, 6,
-                                                16, chunk)
-    torch.cuda.synchronize()
-    assert gsl.LAUNCHES["pregathered_bwd"] == before["pregathered_bwd"] + 1
-    # as K2: the JAX suite's Gaussian-gradient tolerance
-    torch.testing.assert_close(dg_k, dg_p, atol=5e-3, rtol=1e-2)
-    torch.testing.assert_close(dr_k, dr_p, atol=5e-3, rtol=1e-2)
-    # lanes past the count (real ids, summed by the gather adjoint) and the
-    # valid and pad rows are exactly zero
-    past = (torch.arange(geom.shape[2], device=geom.device)[None, :]
-            >= pack.counts[:, None].long())
-    assert (dg_k.transpose(0, 1)[:, past] == 0).all()
-    assert (dr_k.transpose(0, 1)[:, past] == 0).all()
-    assert (dg_k[:, 6:] == 0).all()
+    hold_pregathered(pack.counts, geom.contiguous(), rgbd.contiguous(), 6,
+                     case["chunk"])
+    # the edges of the piece walk, at the training chunk and at a chunk
+    # that is not a multiple of the 64-lane piece
+    for chunk in (256, 96):
+        counts, geom_e, rgbd_e = (torch.tensor(a, device=case["device"])
+                                  for a in edge_windows(chunk))
+        resid = hold_pregathered(counts, geom_e, rgbd_e, EDGE_GRID[0], chunk,
+                                 flips=True)
+        k_stop = resid[:, 0, 1]
+        assert float(k_stop[7]) == 1 and float(k_stop[6]) == 8
+        assert float(k_stop[2]) == 8 and float(k_stop[1]) == 0
 
 
 def test_pregathered_cuda_path_matches_cpu_path(case):

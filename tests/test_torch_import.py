@@ -20,7 +20,7 @@ from gs_localization_torch.pipelines.localize import (
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gs_localization_tpu")
 PORT_FILES = sorted((ROOT / "gs_localization_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "blend_ablation.py"]
 
 
 def _imported_roots(path: pathlib.Path):
