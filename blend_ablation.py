@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Ablation of the pregathered blend kernels K3/K4 on an NVIDIA card.
+"""Ablation of the blend kernels K1-K4 on an NVIDIA card.
 
     python3 blend_ablation.py [--parent CSRC_DIR]
 
 Run it from the repository root: it takes ``chip_smoke.py``'s bench scene
-and training windows (the initial map at its deepest training view). It
-builds ``gs_localization_torch/csrc/`` and copies of it in which one design
-point of K3/K4 is undone (``ABLATIONS``), prints what ``ptxas`` reports for
-K3/K4 of each build (registers, shared memory, spills) and each new build's
-CTAs per SM, holds each against the redesign (k_stop equal, the largest
-differences printed), and times K3 and K4 (median of 25 launches, CUDA
-events, the kernels alone without the wrappers' allocation) at the training
-and the bench windows, in two rounds, the second in reverse order. The
-times include the tile-order helper launch that the redesign's entry points
-make before each kernel. ``--parent`` adds the K3/K4 of an older ``csrc/``
-whose entry points take no tile order (the first design).
+(the bench stream for K1/K2, the bench windows for K3/K4) and its training
+windows (the initial map at its deepest training view). It builds
+``gs_localization_torch/csrc/`` and copies of it in which one design point
+of the shared piece walks is undone (``ABLATIONS``), prints what ``ptxas``
+reports for the four kernels of each build (registers, shared memory,
+spills) and each new build's CTAs per SM, holds each against the redesign
+(k_stop equal, the largest differences printed), and times K1 and K2 at
+the bench stream and K3 and K4 at the training and the bench windows
+(median of 25 launches, CUDA events, the kernels alone without the
+wrappers' allocation), in two rounds, the second in reverse order. The
+times include the tile-order helper launch that the forward entry points
+make before each forward kernel; each build's backward runs on its own
+forward's outputs. ``--parent`` adds the kernels of an older ``csrc/``
+whose K1/K2 entry points take no tile order (the chunk walks), whose K3/K4
+take one, whose forward entry points record no last applied lane and
+whose backward entry points take the forward's resid.
 """
 
 from __future__ import annotations
@@ -29,27 +34,29 @@ from pathlib import Path
 ABLATIONS = {
     "redesign": [],
     "tiles in index order": [(
-        "pallas_blend.cu", "  if (lane == 0) order[rank] = t;\n",
+        "blend_common.cuh", "  if (lane == 0) order[rank] = t;\n",
         "  if (lane == 0) order[t] = t;\n")],
-    "ten warp_sum folds (K4)": [(
+    "ten 5-shuffle folds (K2/K4)": [(
         "blend_common.cuh",
-        "    if (__any_sync(0xffffffffu, g.in)) s = reduce10(v, lane);\n",
-        "    if (__any_sync(0xffffffffu, g.in)) {\n"
+        "    if (__any_sync(0xffffffffu, applied)) s = reduce10(v, lane);\n",
+        "    if (__any_sync(0xffffffffu, applied)) {\n"
         "      for (int q = 0; q < kGrad; ++q) {\n"
-        "        const float t = warp_sum(v[q]);\n"
+        "        float t = v[q];\n"
+        "        for (int off = 16; off > 0; off >>= 1)\n"
+        "          t += __shfl_xor_sync(0xffffffffu, t, off);\n"
         "        if (q == slot) s = t;\n"
         "      }\n"
         "    }\n")],
     "synchronous copies": [(
-        "pallas_blend.cu",
+        "blend_common.cuh",
         "  cp_async_commit();\n}\n",
         "  cp_async_commit();\n  cp_async_wait_all();\n}\n")],
     "accurate exp and division": [
         ("blend_common.cuh", "alpha * __expf(log_full)",
          "alpha * expf(log_full)"),
         ("blend_common.cuh", "__expf(log_before)", "expf(log_before)"),
-        ("blend_common.cuh", "__fdividef(labar, 1.0f - alpha)",
-         "labar / (1.0f - alpha)")],
+        ("blend_common.cuh", "__fdividef(suffix + gl, 1.0f - alpha)",
+         "(suffix + gl) / (1.0f - alpha)")],
     "6 CTAs/SM bound": [
         ("blend_common.cuh", "kPieceMinBlocks = 4", "kPieceMinBlocks = 6")],
 }
@@ -70,8 +77,8 @@ def _sources(tag: str, csrc: Path, edits) -> Path:
 
 def _build_all(dirs: dict) -> dict:
     """One nvcc per source of every build, all started together, then one
-    link per build; prints ptxas' lines for the pregathered kernels and
-    returns tag -> loaded library."""
+    link per build; prints ptxas' lines for the blend kernels and returns
+    tag -> loaded library."""
     from gs_localization_torch._kernels import NVCC_FLAGS
 
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -90,11 +97,11 @@ def _build_all(dirs: dict) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"{tag}: nvcc {src.name}: exit "
                                f"{proc.returncode}\n{out}")
-        if src.name == "pallas_blend.cu":
-            for line in out.splitlines():
-                if "ptxas info" in line and ("entry function" in line
-                                             or "Used" in line):
-                    print(f"{tag}: {line.split(':', 1)[1].strip()}")
+        for line in out.splitlines():
+            if "ptxas info" in line and ("entry function" in line
+                                         or "Used" in line):
+                print(f"{tag}: {src.name}: "
+                      f"{line.split(':', 1)[1].strip()}")
     libs = {}
     for tag, d in dirs.items():
         lib = d / "lib.so"
@@ -104,43 +111,65 @@ def _build_all(dirs: dict) -> dict:
     return libs
 
 
-def _launchers(lib, with_order: bool):
-    """K3 and K4 of one library, called through its C entry points."""
+def _launchers(lib, new: bool):
+    """K1-K4 of one library, called through its C entry points. K3/K4 take
+    the order; K1/K2 take it, K1/K3 write each pixel's last applied lane
+    and K2/K4 take the forward's log_t and those lanes instead of its resid
+    when ``new`` (this tree's entry points)."""
     import torch
 
     p, i = ctypes.c_void_p, ctypes.c_int
 
-    def head(counts, order):
-        return [p(counts.data_ptr())] + (
-            [p(order.data_ptr())] if with_order else [])
+    def cs():
+        return p(torch.cuda.current_stream().cuda_stream)
 
-    def fwd(counts, order, geom, rgbd, grid_x, chunk, outs):
-        num_tiles, _, cap = geom.shape
-        rc = lib.gsl_pregathered_fwd(
-            *head(counts, order), p(geom.data_ptr()), p(rgbd.data_ptr()),
-            i(num_tiles), i(cap), i(grid_x), i(chunk),
-            *[p(o.data_ptr()) for o in outs],
-            p(torch.cuda.current_stream().cuda_stream))
+    def ptrs(*ts):
+        return [p(t.data_ptr()) for t in ts]
+
+    def run(name, rc):
         if rc:
-            raise RuntimeError(f"K3 launch: CUDA error {rc}")
+            raise RuntimeError(f"{name} launch: CUDA error {rc}")
 
-    def bwd(counts, order, geom, rgbd, grid_x, chunk, gacc, glogt, resid,
-            outs):
+    def written(fwd, last):      # what a forward writes: accum, log_t, resid
+        return ptrs(*fwd) + (ptrs(last) if new else [])
+
+    def taken(fwd, last):        # what a backward takes of it
+        return ptrs(fwd[1], last) if new else ptrs(fwd[2])
+
+    def k1(tstart, wcount, order, stream, grid_x, chunk, fwd, last):
+        head = ptrs(tstart, wcount) + (ptrs(order) if new else [])
+        run("K1", lib.gsl_stream_fwd(
+            *head, *ptrs(stream), i(tstart.shape[0]), i(stream.shape[1]),
+            i(grid_x), i(chunk), *written(fwd, last), cs()))
+
+    def k2(tstart, wcount, order, stream, grid_x, chunk, gacc, glogt, fwd,
+           last, out):
+        head = ptrs(tstart, wcount) + (ptrs(order) if new else [])
+        run("K2", lib.gsl_stream_bwd(
+            *head, *ptrs(stream), i(tstart.shape[0]), i(stream.shape[1]),
+            i(grid_x), i(chunk), *ptrs(gacc, glogt), *taken(fwd, last),
+            *ptrs(out), cs()))
+
+    def k3(counts, order, geom, rgbd, grid_x, chunk, fwd, last):
         num_tiles, _, cap = geom.shape
-        rc = lib.gsl_pregathered_bwd(
-            *head(counts, order), p(geom.data_ptr()), p(rgbd.data_ptr()),
-            i(num_tiles), i(cap), i(grid_x), i(chunk), p(gacc.data_ptr()),
-            p(glogt.data_ptr()), p(resid.data_ptr()),
-            *[p(o.data_ptr()) for o in outs],
-            p(torch.cuda.current_stream().cuda_stream))
-        if rc:
-            raise RuntimeError(f"K4 launch: CUDA error {rc}")
+        run("K3", lib.gsl_pregathered_fwd(
+            *ptrs(counts, order, geom, rgbd), i(num_tiles), i(cap),
+            i(grid_x), i(chunk), *written(fwd, last), cs()))
 
-    return fwd, bwd
+    def k4(counts, order, geom, rgbd, grid_x, chunk, gacc, glogt, fwd, last,
+           outs):
+        num_tiles, _, cap = geom.shape
+        run("K4", lib.gsl_pregathered_bwd(
+            *ptrs(counts, order, geom, rgbd), i(num_tiles), i(cap),
+            i(grid_x), i(chunk), *ptrs(gacc, glogt), *taken(fwd, last),
+            *ptrs(*outs), cs()))
+
+    return k1, k2, k3, k4
 
 
-def _windows():
-    """(name, counts, geom, rgbd, grid_x) at the training and the bench
+def _inputs():
+    """The bench stream (stream, tstart, walk_counts, grid_x) and the
+    (name, counts, geom, rgbd, grid_x) of the training and the bench
     windows, as chip_smoke.py builds them."""
     import numpy as np
     import torch
@@ -149,6 +178,8 @@ def _windows():
     from gs_localization_torch.core.camera import Camera
     from gs_localization_torch.pipelines.train_map import TrainPipelineConfig
     from gs_localization_torch.raster import RasterizerConfig
+    from gs_localization_torch.raster.pose_mode import (
+        _project_stream, build_stream_pair_pack)
 
     dev = torch.device("cuda")
     g = cs.bench_scene(dev)
@@ -157,6 +188,10 @@ def _windows():
     cfg = RasterizerConfig(max_pairs=cs.MAX_PAIRS, max_per_tile=1024,
                            max_render=cs.MAX_RENDER, fast_k=1,
                            pallas_chunk=cs.CHUNK)
+    grid_x = -(-cs.W // 16)
+    pack = build_stream_pair_pack(g, cam, cfg)
+    with torch.no_grad():
+        stream = _project_stream(pack.params, cam)
     bins_b, geom_b, rgbd_b, _, _ = cs.bench_windows(g, cam, cfg)
     views = cs.training_views(cam)
     _, _, g0 = cs.initial_map(g, TrainPipelineConfig(), dev)
@@ -164,15 +199,27 @@ def _windows():
         g0, views[:cs.N_VIEWS - cs.N_TEST_VIEWS])
     bins_t, geom_t, rgbd_t = cs.pregathered_inputs(g0, views[deep],
                                                    train_cfg)
-    grid_x = -(-cs.W // 16)
-    return [("training", bins_t.tile_counts, geom_t, rgbd_t, grid_x),
-            ("bench", bins_b.tile_counts, geom_b, rgbd_b, grid_x)]
+    return ((stream, pack.tstart, pack.walk_counts, grid_x),
+            [("training", bins_t.tile_counts, geom_t, rgbd_t, grid_x),
+             ("bench", bins_b.tile_counts, geom_b, rgbd_b, grid_x)])
+
+
+def _vs(cur, base) -> str:
+    """A build's outputs (forward three, then the gradients) against the
+    redesign's."""
+    import torch
+
+    same_k = bool(torch.equal(cur[2][..., 1], base[2][..., 1]))
+    d_f = float((cur[0] - base[0]).abs().max())
+    d_b = max(float((c - b).abs().max()) for c, b in zip(cur[3:], base[3:]))
+    return (f"(vs redesign: k_stop equal {same_k}, accum max|d| {d_f:.2e}, "
+            f"gradients max|d| {d_b:.2e})")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="an older csrc/ whose K3/K4 take no tile order")
+                    help="an older csrc/ whose K1/K2 take no tile order")
     args = ap.parse_args()
 
     import torch
@@ -180,6 +227,7 @@ def main() -> None:
     import chip_smoke as cs
     from gs_localization_torch import _kernels
     from gs_localization_torch.raster import pallas_blend as pb
+    from gs_localization_torch.raster import stream_blend as sb
 
     if not torch.cuda.is_available():
         raise SystemExit("blend_ablation needs an NVIDIA card")
@@ -194,52 +242,67 @@ def main() -> None:
     for tag, lib, new in runs:
         if not new:
             continue
-        lib.gsl_kernel_info.argtypes = [ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_void_p]
-        for which in (2, 3):
+        lib.gsl_kernel_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        for which, name in enumerate(_kernels.KERNELS):
             out = (ctypes.c_int * 4)()
-            lib.gsl_kernel_info(which, cs.CHUNK, out)
-            print(f"{tag}: {_kernels.KERNELS[which]} {out[0]} CTAs/SM, "
-                  f"{out[1]} registers, {out[2]} B shared, {out[3]} B "
-                  f"local", flush=True)
+            lib.gsl_kernel_info(which, out)
+            print(f"{tag}: {name} {out[0]} CTAs/SM, {out[1]} registers, "
+                  f"{out[2]} B shared, {out[3]} B local", flush=True)
 
+    (stream, tstart, wcount, sgx), windows = _inputs()
+    out = sb.stream_blend_fwd_cuda(stream, tstart, wcount, sgx, 16, cs.CHUNK)
+    sgacc, sglogt = cs.cotangents(out[0], out[1], seed=0)
     sets = []
-    for name, counts, geom, rgbd, grid_x in _windows():
-        acc, logt, resid = pb.pregathered_blend_fwd_cuda(
-            counts, geom, rgbd, grid_x, 16, cs.CHUNK)
-        gacc, glogt = cs.cotangents(acc, logt, seed=0)
-        sets.append((name, counts, geom, rgbd, grid_x, gacc, glogt, resid))
+    for name, counts, geom, rgbd, grid_x in windows:
+        out = pb.pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x, 16,
+                                            cs.CHUNK)
+        gacc, glogt = cs.cotangents(out[0], out[1], seed=0)
+        sets.append((name, counts, geom, rgbd, grid_x, gacc, glogt))
     ref = {}
+    dev = stream.device
+
+    def fwd_outs(num_tiles):
+        """A forward's accum, log_t, resid and its last applied lanes."""
+        return ([torch.empty((num_tiles, 4, 256), device=dev),
+                 torch.empty((num_tiles, 256, 1), device=dev),
+                 torch.empty((num_tiles, 256, 2), device=dev)],
+                torch.empty((num_tiles, 256), dtype=torch.int32, device=dev))
+
     for rnd, order_runs in enumerate((runs, runs[::-1])):
         for tag, lib, new in order_runs:
-            fwd, bwd = _launchers(lib, new)
-            line = []
-            for name, counts, geom, rgbd, grid_x, gacc, glogt, resid in sets:
-                num_tiles = counts.shape[0]
-                order = torch.empty_like(counts)     # the entry points fill it
-                f_out = [torch.empty((num_tiles, 4, 256), device=geom.device),
-                         torch.empty((num_tiles, 256, 1), device=geom.device),
-                         torch.empty((num_tiles, 256, 2), device=geom.device)]
+            k1, k2, k3, k4 = _launchers(lib, new)
+            order = torch.empty_like(tstart)      # K1 fills it
+            f_out, last = fwd_outs(tstart.shape[0])
+            d_out = torch.zeros_like(stream)
+            call = (tstart, wcount, order, stream, sgx, cs.CHUNK)
+            k1(*call, f_out, last)
+            k2(*call, sgacc, sglogt, f_out, last, d_out)
+            torch.cuda.synchronize()
+            cur = f_out + [d_out]
+            if tag == "redesign":
+                ref.setdefault("stream", [x.clone() for x in cur])
+            t1 = cs.time_ms(lambda: k1(*call, f_out, last))
+            t2 = cs.time_ms(lambda: k2(*call, sgacc, sglogt, f_out, last,
+                                       d_out))
+            line = [f"stream K1 {t1:.4f} ms K2 {t2:.4f} ms"]
+            if tag != "redesign" and "stream" in ref:
+                line.append(_vs(cur, ref["stream"]))
+            for name, counts, geom, rgbd, grid_x, gacc, glogt in sets:
+                order = torch.empty_like(counts)     # K3 fills it
+                f_out, last = fwd_outs(counts.shape[0])
                 b_out = [torch.empty_like(geom), torch.empty_like(rgbd)]
                 call = (counts, order, geom, rgbd, grid_x, cs.CHUNK)
-                fwd(*call, f_out)
-                bwd(*call, gacc, glogt, resid, b_out)
+                k3(*call, f_out, last)
+                k4(*call, gacc, glogt, f_out, last, b_out)
                 torch.cuda.synchronize()
                 if tag == "redesign":
                     ref.setdefault(name, [x.clone() for x in f_out + b_out])
-                t3 = cs.time_ms(lambda: fwd(*call, f_out))
-                t4 = cs.time_ms(lambda: bwd(*call, gacc, glogt, resid, b_out))
+                t3 = cs.time_ms(lambda: k3(*call, f_out, last))
+                t4 = cs.time_ms(lambda: k4(*call, gacc, glogt, f_out, last,
+                                           b_out))
                 line.append(f"{name} K3 {t3:.4f} ms K4 {t4:.4f} ms")
-                base = ref.get(name)
-                if base is not None and tag != "redesign":
-                    cur = f_out + b_out
-                    same_k = torch.equal(cur[2][..., 1], base[2][..., 1])
-                    d_f = float((cur[0] - base[0]).abs().max())
-                    d_b = max(float((cur[k] - base[k]).abs().max())
-                              for k in (3, 4))
-                    line.append(f"(vs redesign: k_stop equal {same_k}, "
-                                f"accum max|d| {d_f:.2e}, gradients max|d| "
-                                f"{d_b:.2e})")
+                if tag != "redesign" and name in ref:
+                    line.append(_vs(f_out + b_out, ref[name]))
             print(f"round {rnd} {tag}: " + "; ".join(line), flush=True)
     print(cs.smi_line("name,power.limit,clocks.sm,clocks.max.sm"))
 

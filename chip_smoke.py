@@ -5,9 +5,8 @@
 
 1. prints the environment (torch, CUDA, the card's name and power limit);
 2. builds the hand-written CUDA kernels from ``gs_localization_torch/csrc``
-   and prints, for each of K1-K4 at the launched chunk, the CTAs per SM,
-   registers per thread, shared memory per CTA and spill bytes that the
-   CUDA runtime reports;
+   and prints, for each of K1-K4, the CTAs per SM, registers per thread,
+   shared memory per CTA and spill bytes that the CUDA runtime reports;
 3. holds each kernel against its plain PyTorch version on the same inputs:
    K1/K2 (stream blend) at the bench scene (640x480, 100k Gaussians at SH
    degree 3, fast_k=1, chunk 256, max_pairs = max_render = 2^19) and at a
@@ -18,7 +17,9 @@
    initial and the trained map at the deepest training view, at the
    training run's ``max_per_tile``) and a PairPack's windows; at both
    training windows also the distance of K4 and of the float32 plain K4
-   from the float64 plain K4;
+   from the float64 plain K4; and K1/K2 on the bench stream against K3/K4
+   on windows cut out of that stream (one body serves both layouts, so the
+   same bits are expected);
 4. checks the CUDA path against the plain CPU path on the small scene
    (pose-mode images and the camera-tangent gradient, on the stream pack
    and on the PairPack);
@@ -94,7 +95,7 @@ SFU_ISSUE = FP32_ISSUE / 8       # special-function instructions/s
 # Instructions per (pixel, pair), read off csrc/blend_common.cuh, as
 # (fp32, sfu). Each exp, log and division counts one sfu instruction and
 # nothing for its range reduction or refinement, and compares are not
-# counted, so the bound is a lower bound. gate_of() runs on every walked
+# counted, so the bound is a lower bound. gate_of_pair() runs on every walked
 # slot (2 sub, 6 mul, add, mul, sub, min; exp; mul); where the pair passes
 # the gate, the forward's blend (min, sub, add, mul, 4 fma, add; log, exp)
 # and the backward's adjoint (min, 2 sub, mul, 4 fma, add, 3 for abar, 2
@@ -122,6 +123,13 @@ TOL_LAYOUT_IMG = 3e-5
 TOL_LAYOUT_LOSS = 1e-5    # rtol
 TOL_LAYOUT_GRAD = (5e-3, 1e-2)   # on each field divided by its max |grad|
 TOL_PLY = 1e-5            # a map reloaded from its PLY renders the same
+# K1/K2 vs K3/K4 on the same windows: one forward and one backward body
+# serve both layouts, so the same bits are expected
+TOL_SAME = 1e-6
+# the hand-written kernels in a profile, by kernel name
+HAND_KERNELS = ("stream_fwd_kernel", "stream_bwd_kernel",
+                "pregathered_fwd_kernel", "pregathered_bwd_kernel",
+                "tile_order_kernel")
 
 ROOT = Path(__file__).resolve().parent
 TRAINABLE = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
@@ -293,7 +301,8 @@ def flipped(logt_a, logt_b):
 
 
 def check_forward(label, kname, out_k, out_p, rgbd_max: float) -> float:
-    """A forward kernel's (accum, log_t, resid) against its plain version's.
+    """A forward kernel's (accum, log_t, resid, walk) against its plain
+    version's (accum, log_t, resid).
 
     A pair whose inclusive log T lies within rounding of LOG_T_EPS is
     applied by one summation order (sequential) and not by the other
@@ -305,7 +314,7 @@ def check_forward(label, kname, out_k, out_p, rgbd_max: float) -> float:
     included."""
     import torch
 
-    acc_k, logt_k, resid_k = out_k
+    acc_k, logt_k, resid_k = out_k[:3]
     acc_p, logt_p, resid_p = out_p
     torch.cuda.synchronize()
     d_lt = (logt_k - logt_p).abs()[..., 0]                  # (T, 256)
@@ -351,20 +360,28 @@ def check_backward(label, kname, bwd, gacc, glogt, flip):
     strict = full if n_flip == 0 else bwd(gacc * keep[:, None, :],
                                           glogt * keep[:, :, None])
     torch.cuda.synchronize()
-    errs, n_strict, n_full = [], 0.0, 0.0
-    for (k, p), (k0, p0) in zip(full, strict):
+    errs, n_strict, n_full, worst = [], 0.0, 0.0, ""
+    for o, ((k, p), (k0, p0)) in enumerate(zip(full, strict)):
         n_strict = max(n_strict, close_err(k0, p0, *TOL_BWD)[1])
         d = torch.abs(k.double() - p.double())
         pa = p.double().abs()
-        lim = TOL_BWD[0] + TOL_BWD[1] * pa \
-            + FLIP_BWD * pa.amax(dim=-1, keepdim=True)
+        rmax = pa.amax(dim=-1, keepdim=True)
+        lim = TOL_BWD[0] + TOL_BWD[1] * pa + FLIP_BWD * rmax
         errs.append(float(d.max()))
-        n_full = max(n_full, float((d / lim).max()))
+        n = d / lim
+        if float(n.max()) > n_full:
+            n_full = float(n.max())
+            at = np.unravel_index(int(n.argmax()), tuple(n.shape))
+            flips = (f", {int(flip[at[0]].sum())} flipped pixels in tile "
+                     f"{at[0]}" if k.dim() == 3 else "")
+            worst = (f"; worst with them: output {o} at {tuple(map(int, at))}"
+                     f", kernel {float(k[at]):.4e}, plain {float(p[at]):.4e}"
+                     f", row max {float(rmax[at[:-1]].squeeze()):.4e}{flips}")
     print(f"[{label}] {kname} vs plain: max|d| "
           f"{', '.join(f'{e:.3e}' for e in errs)} (full cotangents); max "
           f"normalized {n_strict:.3f} with the {n_flip} flipped pixels' "
           f"cotangents zeroed (tol atol {TOL_BWD[0]} rtol {TOL_BWD[1]}), "
-          f"{n_full:.3f} with them (+ {FLIP_BWD} x row max)")
+          f"{n_full:.3f} with them (+ {FLIP_BWD} x row max){worst}")
     check(n_strict <= 1 and n_full <= 1,
           f"[{label}] {kname} disagrees with its plain version")
     check(all(bool(torch.isfinite(k).all()) for k, _ in full),
@@ -385,7 +402,7 @@ def cotangents(acc_k, logt_k, seed: int):
 
 def compare_kernels(label, stream_t, pack, grid_x, seed):
     """K1 and K2 against their plain versions on one stream; returns the max
-    abs errors and the backward's inputs."""
+    abs errors, the cotangents and K1's outputs."""
     from gs_localization_torch.raster import stream_blend as sb
 
     args = (stream_t, pack.tstart, pack.walk_counts)
@@ -395,10 +412,58 @@ def compare_kernels(label, stream_t, pack, grid_x, seed):
                                 float(stream_t[8:12].abs().max()))
     gacc, glogt = cotangents(out_k[0], out_k[1], seed)
     e_d, _ = check_backward(label, "K2 (dstream)", lambda ga, gl: [(
-        sb.stream_blend_bwd_cuda(*args, ga, gl, out_k[2], grid_x, 16, CHUNK),
+        sb.stream_blend_bwd_cuda(*args, ga, gl, out_k[1], out_k[3], grid_x,
+                                 16, CHUNK),
         sb.stream_blend_bwd_plain(*args, ga, gl, grid_x, 16, CHUNK))],
         gacc, glogt, flip)
-    return e_fwd, e_d, (gacc, glogt, out_k[2])
+    return e_fwd, e_d, (gacc, glogt, out_k)
+
+
+def hold_stream_vs_pregathered(stream_t, pack, grid_x: int, seed: int):
+    """K1/K2 on a stream against K3/K4 on windows cut out of it (tile t's
+    window: stream lanes from its start, the cap the longest walk rounded
+    up to the chunk): the same pairs in the same order through one forward
+    and one backward body. The forward's outputs and walks, and K2's sums
+    at each tile's walked lanes against K4's, are held to TOL_SAME."""
+    import torch
+    from gs_localization_torch.raster import pallas_blend as pb
+    from gs_localization_torch.raster import stream_blend as sb
+
+    mrpad = stream_t.shape[1]
+    start, count = sb._window(pack.tstart, pack.walk_counts, mrpad, CHUNK)
+    cap = max(CHUNK, round_up(int(count.max()), CHUNK))
+    lanes = torch.arange(cap, device=stream_t.device)
+    pos = torch.clamp_max(start[:, None] + lanes, mrpad - 1)     # (T, cap)
+    win = stream_t[:12, pos]                                     # (12, T, cap)
+    counts = count.to(torch.int32)
+    geom = win[:8].transpose(0, 1).contiguous()
+    rgbd = win[8:].transpose(0, 1).contiguous()
+    args = (stream_t, pack.tstart, pack.walk_counts)
+    out_s = sb.stream_blend_fwd_cuda(*args, grid_x, 16, CHUNK)
+    out_g = pb.pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x, 16,
+                                          CHUNK)
+    gacc, glogt = cotangents(out_s[0], out_s[1], seed)
+    d_s = sb.stream_blend_bwd_cuda(*args, gacc, glogt, out_s[1], out_s[3],
+                                   grid_x, 16, CHUNK)
+    dgeom, drgbd = pb.pregathered_blend_bwd_cuda(
+        counts, geom, rgbd, gacc, glogt, out_g[1], out_g[3], grid_x, 16,
+        CHUNK)
+    torch.cuda.synchronize()
+    pairs = list(zip([*out_s[:3], *out_s[3]], [*out_g[:3], *out_g[3]]))
+    same_fwd = all(torch.equal(a, b) for a, b in pairs)
+    e_fwd = max(float((a - b).abs().max()) for a, b in pairs)
+    walked = torch.minimum(count, out_s[2][:, 0, 1].long() * CHUNK)
+    at = (lanes[None, :] < walked[:, None])[None]                # (1, T, cap)
+    d_g = torch.cat([dgeom, drgbd], dim=1).transpose(0, 1)       # (12, T, cap)
+    d_w = torch.where(at, d_s[:12, pos], 0.0)
+    same_bwd = torch.equal(d_w, torch.where(at, d_g, 0.0))
+    e_bwd = float((d_w - torch.where(at, d_g, 0.0)).abs().max())
+    print(f"[bench] K1 vs K3 on windows cut from the stream (cap {cap}): "
+          f"bitwise {same_fwd}, max|d| {e_fwd:.3e}; K2 vs K4 at the "
+          f"{int(walked.sum())} walked lanes: bitwise {same_bwd}, max|d| "
+          f"{e_bwd:.3e} (tol {TOL_SAME})")
+    check(e_fwd <= TOL_SAME and e_bwd <= TOL_SAME,
+          "the stream and pregathered kernels disagree on the same windows")
 
 
 def pregathered_inputs(g, cam, cfg):
@@ -432,8 +497,8 @@ def yardstick64(label, args, grid_x, chunk, out_k, out_p, gacc, glogt):
             | flipped(out_p[1], out_64[1]))
     keep = (~flip).float()
     ga, gl = gacc * keep[:, None, :], glogt * keep[:, :, None]
-    d_k = pb.pregathered_blend_bwd_cuda(*args, ga, gl, out_k[2], grid_x, 16,
-                                        chunk)
+    d_k = pb.pregathered_blend_bwd_cuda(*args, ga, gl, out_k[1], out_k[3],
+                                        grid_x, 16, chunk)
     d_32 = pb.pregathered_blend_bwd_plain(*args, ga, gl, grid_x, 16, chunk)
     d_64 = pb.pregathered_blend_bwd_plain(*args, ga, gl, grid_x, 16, chunk,
                                           dtype=f64)
@@ -458,8 +523,8 @@ def compare_pregathered(label, counts, geom, rgbd, grid_x, seed,
                         yardstick=False):
     """K3 and K4 against their plain versions on one set of windows, and
     K4's lanes past each count exactly 0 (and, with ``yardstick``, both
-    against the float64 plain version); returns the max abs errors and the
-    backward's inputs."""
+    against the float64 plain version); returns the max abs errors, the
+    cotangents and K3's outputs."""
     import torch
     from gs_localization_torch.raster import pallas_blend as pb
 
@@ -471,8 +536,8 @@ def compare_pregathered(label, counts, geom, rgbd, grid_x, seed,
                                 float(rgbd.abs().max()))
     gacc, glogt = cotangents(out_k[0], out_k[1], seed)
     e_bwd, dk = check_backward(label, "K4 (dgeom, drgbd)", lambda ga, gl: list(
-        zip(pb.pregathered_blend_bwd_cuda(*args, ga, gl, out_k[2], grid_x, 16,
-                                          chunk),
+        zip(pb.pregathered_blend_bwd_cuda(*args, ga, gl, out_k[1], out_k[3],
+                                          grid_x, 16, chunk),
             pb.pregathered_blend_bwd_plain(*args, ga, gl, grid_x, 16, chunk))),
         gacc, glogt, flip)
     past = (torch.arange(geom.shape[2], device=geom.device)[None, :]
@@ -485,7 +550,7 @@ def compare_pregathered(label, counts, geom, rgbd, grid_x, seed,
           f"[{label}] K4 wrote lanes past the count or the valid/pad rows")
     if yardstick:
         yardstick64(label, args, grid_x, chunk, out_k, out_p, gacc, glogt)
-    return e_fwd, e_bwd, (gacc, glogt, out_k[2])
+    return e_fwd, e_bwd, (gacc, glogt, out_k)
 
 
 def gated_products(windows, walked, grid_x: int, chunk: int) -> int:
@@ -643,8 +708,7 @@ def profile(label: str, fn, n_steps: int) -> None:
             by_name[e.name] = (us + e.time_range.end - e.time_range.start,
                                n + 1)
     hand = sum(us for name, (us, _) in by_name.items()
-               if "stream_fwd_kernel" in name or "stream_bwd_kernel" in name
-               or "pregathered_" in name)
+               if any(k in name for k in HAND_KERNELS))
     total = sum(us for us, _ in by_name.values())
     print(f"profile {label} ({n_steps} steps, under the profiler): wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
@@ -751,8 +815,8 @@ def main() -> None:
         print(f"kernel build: {time.perf_counter() - t0:.1f} s "
               f"({'cached' if built is None else 'nvcc'}) from "
               f"{[s.name for s in _kernels.sources()]}")
-        for name, info in _kernels.kernel_info(CHUNK).items():
-            print(f"occupancy {name} at chunk {CHUNK}: "
+        for name, info in _kernels.kernel_info().items():
+            print(f"occupancy {name}: "
                   f"{info['ctas_per_sm']} CTAs/SM "
                   f"({info['ctas_per_sm'] * 8} warps), {info['regs']} "
                   f"registers/thread, {info['smem']} B shared memory/CTA, "
@@ -780,7 +844,7 @@ def main() -> None:
         print(f"bench stream: {tuple(stream_t.shape)}, kept_al "
               f"{int(pack.kept_al)}, tiles {pack.tstart.shape[0]}, max walk "
               f"{int(pack.walk_counts.max())}")
-        err_k1, err_k2, (gacc, glogt, resid) = compare_kernels(
+        err_k1, err_k2, (gacc, glogt, fwd12) = compare_kernels(
             "bench", stream_t, pack, grid_x, seed=0)
         pack_s = build_stream_pair_pack(gs, cam_s, cfg_s)
         counts_s = pack_s.walk_counts
@@ -801,7 +865,7 @@ def main() -> None:
         print(f"bench windows: max_tile_count {mtc_bench} -> max_per_tile "
               f"{geom_b.shape[2]}, geom {tuple(geom_b.shape)}, {n_bench}"
               f" pairs emitted")
-        err_k3, err_k4, (gacc3, glogt3, resid3) = compare_pregathered(
+        err_k3, err_k4, (gacc3, glogt3, fwd3) = compare_pregathered(
             "bench", bins_b.tile_counts, geom_b, rgbd_b, grid_x, seed=2)
         bins_sm, geom_sm, rgbd_sm = pregathered_inputs(
             gs, cam_s, cfg_s.replace(use_stream=False, max_per_tile=256))
@@ -813,6 +877,7 @@ def main() -> None:
         e3, e4, _ = compare_pregathered("small", c_sm, geom_sm, rgbd_sm,
                                         -(-96 // 16), seed=3)
         err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
+        hold_stream_vs_pregathered(stream_t, pack, grid_x, seed=8)
 
     # ---- CUDA path vs CPU path, small scene, both layouts ----------------
     with phase("CUDA vs CPU"):
@@ -924,7 +989,7 @@ def main() -> None:
         print(f"training windows (initial map, view{deep}): max count "
               f"{int(c_t.max())} ({-(-int(c_t.max()) // CHUNK)} chunks), "
               f"median {int(c_t.median())}, geom {tuple(geom_t.shape)}")
-        e3, e4, (gacc_t, glogt_t, resid_t) = compare_pregathered(
+        e3, e4, (gacc_t, glogt_t, fwd_t) = compare_pregathered(
             "train-initial", c_t, geom_t, rgbd_t, grid_x, seed=4,
             yardstick=True)
         err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
@@ -1109,15 +1174,16 @@ def main() -> None:
         calls = {
             "K1": lambda: sb.stream_blend_fwd_cuda(*args, grid_x, 16, CHUNK),
             "K2": lambda: sb.stream_blend_bwd_cuda(
-                *args, gacc, glogt, resid, grid_x, 16, CHUNK),
+                *args, gacc, glogt, fwd12[1], fwd12[3], grid_x, 16, CHUNK),
             "K3 bench": lambda: pb.pregathered_blend_fwd_cuda(
                 *bargs, grid_x, 16, CHUNK),
             "K4 bench": lambda: pb.pregathered_blend_bwd_cuda(
-                *bargs, gacc3, glogt3, resid3, grid_x, 16, CHUNK),
+                *bargs, gacc3, glogt3, fwd3[1], fwd3[3], grid_x, 16, CHUNK),
             "K3": lambda: pb.pregathered_blend_fwd_cuda(
                 *pargs, grid_x, 16, CHUNK),
             "K4": lambda: pb.pregathered_blend_bwd_cuda(
-                *pargs, gacc_t, glogt_t, resid_t, grid_x, 16, CHUNK),
+                *pargs, gacc_t, glogt_t, fwd_t[1], fwd_t[3], grid_x, 16,
+                CHUNK),
         }
         tk = {name: (device_ms(fn), time_ms(fn)) for name, fn in calls.items()}
         k1p_ms = time_ms(lambda: sb.stream_blend_fwd_plain(*args, grid_x, 16,
@@ -1128,9 +1194,9 @@ def main() -> None:
             *pargs, grid_x, 16, CHUNK))
         k4p_ms = time_ms(lambda: pb.pregathered_blend_bwd_plain(
             *pargs, gacc_t, glogt_t, grid_x, 16, CHUNK))
-        work12 = walked_work(stream_t, pack, resid, grid_x)
-        work34b = pregathered_work(*bargs, resid3, grid_x)
-        work34 = pregathered_work(*pargs, resid_t, grid_x)
+        work12 = walked_work(stream_t, pack, fwd12[2], grid_x)
+        work34b = pregathered_work(*bargs, fwd3[2], grid_x)
+        work34 = pregathered_work(*pargs, fwd_t[2], grid_x)
         for label, wk in (("K1/K2 bench", work12), ("K3/K4 bench", work34b),
                           ("K3/K4 training", work34)):
             b_fwd = max(wk["fwd_ops_s"], wk["fwd_bytes"] / PEAK_HBM) * 1e3

@@ -98,8 +98,7 @@ def load() -> ctypes.CDLL:
         _LIB = ctypes.CDLL(str(library_path()))
         _LIB.gsl_error_string.argtypes = [ctypes.c_int]
         _LIB.gsl_error_string.restype = ctypes.c_char_p
-        _LIB.gsl_kernel_info.argtypes = [ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_void_p]
+        _LIB.gsl_kernel_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
         _LIB.gsl_kernel_info.restype = ctypes.c_int
     return _LIB
 
@@ -108,16 +107,17 @@ KERNELS = ("K1 stream_fwd", "K2 stream_bwd", "K3 pregathered_fwd",
            "K4 pregathered_bwd")
 
 
-def kernel_info(chunk: int) -> dict:
-    """For each of K1-K4 at ``chunk``, what the CUDA runtime reports:
-    CTAs per SM at 256 threads (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-    registers per thread, shared memory per CTA (static + dynamic, bytes)
-    and local memory per thread (spills, bytes)."""
+def kernel_info() -> dict:
+    """For each of K1-K4, what the CUDA runtime reports: CTAs per SM at 256
+    threads (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per
+    thread, shared memory per CTA (bytes; all four use static shared memory
+    only, the same at every chunk) and local memory per thread (spills,
+    bytes)."""
     lib = load()
     info = {}
     for which, name in enumerate(KERNELS):
         out = (ctypes.c_int * 4)()
-        rc = lib.gsl_kernel_info(which, chunk, out)
+        rc = lib.gsl_kernel_info(which, out)
         if rc != 0:
             raise RuntimeError(f"kernel info of {name}: CUDA error {rc} "
                                f"({lib.gsl_error_string(rc).decode()})")

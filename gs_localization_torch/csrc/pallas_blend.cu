@@ -11,14 +11,14 @@
 //                          written into the tile's own (8, cap) and (4, cap)
 //                          gradient blocks
 //
-// The blend contract is in blend_common.cuh, shared with the stream kernels
-// (stream_blend.cu), so K3/K4 compute what K1/K2 compute on a window that
-// was gathered per tile beforehand.
+// The blend contract and the walks are in blend_common.cuh: K3/K4 run the
+// same forward and backward bodies as the stream kernels (stream_blend.cu),
+// on a window that was gathered per tile beforehand.
 //
 // What bounds them on the H100: instruction issue, not memory. Each walked
 // pair slot is read once per tile and reused by 256 pixels, and the
 // per-(pixel, pair) gate and blend math (fp32, exp/log) is the least work.
-// The first design spent issue slots around that math: ten 5-step warp_sum
+// The first design spent issue slots around that math: ten 5-shuffle sum
 // trees per pair in K4 (50 shuffles, one warp instruction per clock per
 // SM), 11 (K3) or 14 (K4) scalar shared-memory loads per pair, and the
 // accurate expf and IEEE division where no threshold reads the value; its
@@ -27,27 +27,23 @@
 //
 // - Pieces. A tile's pairs are staged in pieces of at most kSub = 64 lanes
 //   of one contract chunk, so shared memory no longer scales with the chunk
-//   (K3 8 KB, K4 28 KB per CTA) and registers set the CTAs per SM
+//   (K3 8 KB, K4 28 KB per CTA, static) and registers set the CTAs per SM
 //   (__launch_bounds__ kPieceMinBlocks: 4, 32 warps). The contract chunk
 //   stays what it was: K3's block vote (__syncthreads_or of log T >= eps)
 //   is taken at the end of each contract chunk, never of a piece, so
-//   k_stop and resid are unchanged; K4 walks [0, min(count, k_stop *
-//   chunk)) from the last lane down, piece by piece, with the same pair
-//   order and the same log T subtraction.
+//   k_stop and resid are unchanged; K4 walks from the tile's last applied
+//   lane down to 0, piece by piece, in the same pair order.
 // - Pair-major staging. A staged pair is 16 floats (12 values, padded), so
 //   the walks read it with three broadcast float4 loads instead of 11 (K3)
 //   or 14 (K4) scalar loads.
 // - Asynchronous double buffering. The next piece in walk order is copied
-//   with cp.async while the current one is walked. Each thread copies 4-byte
-//   elements, 8 pairs x 4 rows per warp: every 8 lanes read one 32-byte
-//   sector of a row, and the transpose to pair-major happens in the copy
-//   itself, so there is no landing buffer, no transpose pass and no extra
-//   barrier (a TMA bulk copy moves rows contiguously and would need both).
-//   K3 copies the first piece of the next chunk before the vote; when the
-//   vote ends the walk, that copy is drained and dropped. On the H100 at
-//   the training and bench windows, waiting for each copy at once measured
-//   no slower: a piece's copy is a few percent of its walk, and the SM's
-//   other CTAs cover it.
+//   with cp.async while the current one is walked, transposed to pair-major
+//   in the copy itself (stage_piece), so there is no landing buffer, no
+//   transpose pass and no extra barrier (a TMA bulk copy moves rows
+//   contiguously and would need both). On the H100 at the training and
+//   bench windows, waiting for each copy at once measured no slower: a
+//   piece's copy is a few percent of its walk, and the SM's other CTAs
+//   cover it.
 // - K4's per-pair fold. reduce10 sums a pair's ten gradient values over the
 //   warp by recursive halving, 12 shuffles instead of 50, and each sum ends
 //   on a known lane, which writes it to the warp's partials; the cross-warp
@@ -55,14 +51,23 @@
 //   Warps in which no pixel passes a pair's gate skip the fold.
 // - Deepest tiles first. Block b takes tile order[b], order being the
 //   tiles by count, descending, ties in tile order (a stable descending
-//   argsort of the clamped counts, computed on the card by a helper kernel
+//   argsort of the clamped counts, computed on the card by tile_order_kernel
 //   launched just before K3/K4, so the wrapper adds no sort of its own), so
-//   the deepest tiles start first and do not set the tail. Outputs stay
+//   the deepest tiles start first and do not set the tail; K4 runs in K3's
+//   order. Outputs stay
 //   indexed by tile, so the result does not depend on the order.
 // - Fast exp and division off the thresholds. The gate and log T stay
 //   accurate (threshold tests read them); the weight exp(log T) of an
 //   applied pair and K4's division by 1 - alpha use __expf / __fdividef
 //   (blend_common.cuh says why that is safe).
+// - K3 records each pixel's last applied lane (`last`). K4 takes the
+//   gated pairs before it as the applied ones and rebuilds their log T from
+//   K3's log_t, so it is the adjoint of exactly the blend K3 computed, and
+//   each warp stops its walk at its pixels' largest `last` (blend_piece_bwd
+//   says how). This departs from the TPU kernel on purpose: that one
+//   rebuilds log T from log_full through every walked pair and compares it
+//   with log(1e-4), which after a long walk past saturation can disagree
+//   with its own forward.
 // - K4 writes each output element once: the sums of its walked lanes, and
 //   zeros at or past the walked end (lanes past the count must be exactly
 //   0, since the caller's gather adjoint adds them into real Gaussians) and
@@ -82,75 +87,24 @@ namespace {
 
 using namespace gsl;
 
-constexpr int kGeomRows = 8;
 constexpr int kRgbdRows = 4;
 
 // The tile's count clamped to [0, cap], as a corrupt table must never
 // index past the window.
-__device__ __forceinline__ int tile_count(const int* counts, int t, int cap) {
-  return min(max(counts[t], 0), cap);
-}
-
-constexpr int kOrderThreads = 256;   // 8 warps, one tile each
-
-// order[rank(t)] = t, where rank(t) counts the tiles with a larger clamped
-// count, and those with the same count and a smaller index: the stable
-// descending argsort of the counts. One warp per tile, its lanes striding
-// over the other tiles; integer sums only, so the order is the same on
-// every run.
-__global__ void __launch_bounds__(kOrderThreads)
-tile_order_kernel(const int* __restrict__ counts, int num_tiles, int cap,
-                  int* __restrict__ order) {
-  const int t = blockIdx.x * (kOrderThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (t >= num_tiles) return;          // the whole warp: t is per warp
-  const int c = tile_count(counts, t, cap);
-  int rank = 0;
-  for (int u = lane; u < num_tiles; u += 32) {
-    const int cu = tile_count(counts, u, cap);
-    rank += (cu > c) || (cu == c && u < t);
+struct TileCount {
+  const int* counts;
+  int cap;
+  __device__ __forceinline__ int operator()(int t) const {
+    return min(max(counts[t], 0), cap);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) rank += __shfl_xor_sync(0xffffffffu, rank, off);
-  if (lane == 0) order[rank] = t;
-}
+};
 
-// Fills order (num_tiles ints) on the stream; returns a cudaError_t.
-int launch_tile_order(const int* counts, int num_tiles, int cap, int* order,
-                      cudaStream_t stream) {
-  constexpr int kTilesPerBlock = kOrderThreads / 32;
-  tile_order_kernel<<<(num_tiles + kTilesPerBlock - 1) / kTilesPerBlock,
-                      kOrderThreads, 0, stream>>>(counts, num_tiles, cap,
-                                                  order);
-  return (int)cudaGetLastError();
-}
-
-// The tile this block walks: order[blockIdx.x], clamped.
-__device__ __forceinline__ int tile_of(const int* order, int num_tiles) {
-  return min(max(order[blockIdx.x], 0), num_tiles - 1);
-}
-
-// Copies lanes [q.start, q.start + q.n) of tile t's window into stage,
-// pair-major, with cp.async; commits one group.
-__device__ __forceinline__ void stage_piece(float* stage,
-                                            const float* __restrict__ geom,
-                                            const float* __restrict__ rgbd,
-                                            int t, int cap, Piece q) {
-  const float* g = geom + (size_t)t * kGeomRows * cap + q.start;
-  const float* c = rgbd + (size_t)t * kRgbdRows * cap + q.start;
-  const int units = 3 * ((q.n + 7) >> 3);   // 32 elements: 8 pairs x 4 rows
-  for (int idx = threadIdx.x; idx < units * 32; idx += kPix) {
-    const int u = idx >> 5;
-    const int l = idx & 31;
-    const int r = 4 * (u % 3) + (l >> 3);
-    const int j = 8 * (u / 3) + (l & 7);
-    if (j < q.n) {
-      cp_async_f32(stage + j * kPairStride + r,
-                   r < kGeomRows ? g + (size_t)r * cap + j
-                                 : c + (size_t)(r - kGeomRows) * cap + j);
-    }
-  }
-  cp_async_commit();
+// Tile t's window: its own (8, cap) and (4, cap) blocks.
+__device__ __forceinline__ PairWindow tile_pairs(const float* geom,
+                                                 const float* rgbd, int t,
+                                                 int cap) {
+  return {geom + (size_t)t * kGeomRows * cap,
+          rgbd + (size_t)t * kRgbdRows * cap, (size_t)cap};
 }
 
 __global__ void __launch_bounds__(kPix, kPieceMinBlocks)
@@ -159,45 +113,13 @@ pregathered_fwd_kernel(const int* __restrict__ counts,
                        const float* __restrict__ geom,
                        const float* __restrict__ rgbd, int cap, int grid_x,
                        int chunk, float* __restrict__ accum,
-                       float* __restrict__ logt, float* __restrict__ resid) {
+                       float* __restrict__ logt, float* __restrict__ resid,
+                       int* __restrict__ last) {
   __shared__ __align__(16) float stage[kStages][kStageFloats];
   const int t = tile_of(order, num_tiles);
-  const int i = threadIdx.x;
-  float px, py;
-  pixel_of(t, grid_x, &px, &py);
-  const int count = tile_count(counts, t, cap);
-  const int sw = min(kSub, chunk);
-  const int nsub = (chunk + sw - 1) / sw;
-  const int n_pieces = pieces_of(count, chunk, sw, nsub);
-
-  float log_full = 0.0f;   // every alpha: the saturation test and resid
-  float log_app = 0.0f;    // applied alphas only: the output transmittance
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  int k = 0;               // contract chunks visited
-  if (n_pieces > 0) {
-    stage_piece(stage[0], geom, rgbd, t, cap, piece_of(0, chunk, sw, nsub, count));
-  }
-  for (int p = 0; p < n_pieces; ++p) {
-    cp_async_wait_all();
-    __syncthreads();       // piece p landed; buffer (p + 1) & 1 walked
-    if (p + 1 < n_pieces) {
-      stage_piece(stage[(p + 1) & 1], geom, rgbd, t, cap,
-                  piece_of(p + 1, chunk, sw, nsub, count));
-    }
-    blend_piece_fwd(stage[p & 1], piece_of(p, chunk, sw, nsub, count).n, px,
-                    py, log_full, log_app, acc);
-    if ((p + 1) % nsub == 0 || p + 1 == n_pieces) {   // end of a contract chunk
-      ++k;
-      if (!__syncthreads_or(log_full >= kLogTEps)) break;
-    }
-  }
-  cp_async_wait_all();     // the next chunk's first piece, after an early exit
-  const size_t tp = (size_t)t * kPix + i;
-#pragma unroll
-  for (int ch = 0; ch < 4; ++ch) accum[((size_t)t * 4 + ch) * kPix + i] = acc[ch];
-  logt[tp] = log_app;
-  resid[2 * tp + 0] = log_full;
-  resid[2 * tp + 1] = (float)k;
+  blend_tile_fwd(stage, tile_pairs(geom, rgbd, t, cap),
+                 TileCount{counts, cap}(t), chunk, t, grid_x, accum, logt,
+                 resid, last);
 }
 
 __global__ void __launch_bounds__(kPix, kPieceMinBlocks)
@@ -207,119 +129,79 @@ pregathered_bwd_kernel(const int* __restrict__ counts,
                        const float* __restrict__ rgbd, int cap, int grid_x,
                        int chunk, const float* __restrict__ gacc,
                        const float* __restrict__ glogt,
-                       const float* __restrict__ resid,
+                       const float* __restrict__ logt,
+                       const int* __restrict__ last,
                        float* __restrict__ dgeom, float* __restrict__ drgbd) {
   __shared__ __align__(16) float stage[kStages][kStageFloats];
   __shared__ float part[kWarps * kSub * kGrad];
   const int t = tile_of(order, num_tiles);
   const int i = threadIdx.x;
-  float px, py;
-  pixel_of(t, grid_x, &px, &py);
-  const int count = tile_count(counts, t, cap);
-  const int n_chunks = (count + chunk - 1) / chunk;
-  const size_t tp = (size_t)t * kPix + i;
-  const int k_stop = min(max((int)resid[2 * (size_t)t * kPix + 1], 0), n_chunks);
-  const int end = min(count, k_stop * chunk);   // lanes the forward walked
-  const int sw = min(kSub, chunk);
-  const int nsub = (chunk + sw - 1) / sw;
-  const int n_pieces = pieces_of(end, chunk, sw, nsub);
-  if (n_pieces > 0) {
-    stage_piece(stage[(n_pieces - 1) & 1], geom, rgbd, t, cap,
-                piece_of(n_pieces - 1, chunk, sw, nsub, end));
-  }
-
-  // Zeros where no walked lane is: lanes >= end, and the valid and pad rows.
   float* dg = dgeom + (size_t)t * kGeomRows * cap;
   float* dc = drgbd + (size_t)t * kRgbdRows * cap;
-  for (int j = i; j < cap; j += kPix) {
-    dg[6 * (size_t)cap + j] = 0.0f;
-    dg[7 * (size_t)cap + j] = 0.0f;
-  }
-  for (int r = 0; r < kGrad; ++r) {
-    float* row = r < 6 ? dg + (size_t)r * cap : dc + (size_t)(r - 6) * cap;
-    for (int j = end + i; j < cap; j += kPix) row[j] = 0.0f;
-  }
-
-  float log_after = resid[2 * tp];            // inclusive log T after the pair
-  float gc[4];
-#pragma unroll
-  for (int ch = 0; ch < 4; ++ch) gc[ch] = gacc[((size_t)t * 4 + ch) * kPix + i];
-  const float gl = glogt[tp];
-  float suffix = 0.0f;                        // sum over later pairs of wbar * w
-  const int slot = reduce10_slot(i & 31);
-
-  for (int p = n_pieces - 1; p >= 0; --p) {
-    const Piece q = piece_of(p, chunk, sw, nsub, end);
-    cp_async_wait_all();
-    __syncthreads();   // piece p landed; buffer (p - 1) & 1 and part free
-    if (p > 0) {
-      stage_piece(stage[(p - 1) & 1], geom, rgbd, t, cap,
-                  piece_of(p - 1, chunk, sw, nsub, end));
+  // Zeros where no walked lane is: lanes >= end, and the valid and pad rows.
+  auto fill = [=](int end) {
+    for (int j = i; j < cap; j += kPix) {
+      dg[6 * (size_t)cap + j] = 0.0f;
+      dg[7 * (size_t)cap + j] = 0.0f;
     }
-    blend_piece_bwd(stage[p & 1], part, q.n, px, py, gc, gl, slot, log_after,
-                    suffix);
-    __syncthreads();
-    for (int idx = i; idx < kGrad * q.n; idx += kPix) {
-      const int r = idx / q.n;
-      const int j = idx - r * q.n;
-      const float s = sum_piece_partials(part, j, r);
-      if (r < 6) {
-        dg[(size_t)r * cap + q.start + j] = s;
-      } else {
-        dc[(size_t)(r - 6) * cap + q.start + j] = s;
-      }
+    for (int r = 0; r < kGrad; ++r) {
+      float* row = r < 6 ? dg + (size_t)r * cap : dc + (size_t)(r - 6) * cap;
+      for (int j = end + i; j < cap; j += kPix) row[j] = 0.0f;
     }
-  }
+  };
+  blend_tile_bwd(stage, part, tile_pairs(geom, rgbd, t, cap),
+                 GradWindow{dg, dc, (size_t)cap}, TileCount{counts, cap}(t),
+                 chunk, t, grid_x, gacc, glogt, logt, last, fill);
 }
 
 }  // namespace
 
 extern "C" {
 
-// `order` is scratch of num_tiles ints: it receives the tile order the
-// kernel ran in.
+// `order` (num_tiles ints) receives the tile order the kernel ran in and
+// `last` (num_tiles x 256 ints) each pixel's last applied lane + 1: both
+// are inputs of the backward.
 int gsl_pregathered_fwd(const int* counts, int* order, const float* geom,
                         const float* rgbd, int num_tiles, int cap, int grid_x,
                         int chunk, float* accum, float* logt, float* resid,
-                        void* cuda_stream) {
+                        int* last, void* cuda_stream) {
   if (num_tiles == 0) return 0;
   if (chunk < 1 || cap < chunk) return (int)cudaErrorInvalidValue;
-  const int err = launch_tile_order(counts, num_tiles, cap, order,
+  const int err = launch_tile_order(TileCount{counts, cap}, num_tiles, order,
                                     (cudaStream_t)cuda_stream);
   if (err != 0) return err;
   pregathered_fwd_kernel<<<num_tiles, kPix, 0, (cudaStream_t)cuda_stream>>>(
       counts, order, num_tiles, geom, rgbd, cap, grid_x, chunk, accum, logt,
-      resid);
+      resid, last);
   return (int)cudaGetLastError();
 }
 
-int gsl_pregathered_bwd(const int* counts, int* order, const float* geom,
-                        const float* rgbd, int num_tiles, int cap, int grid_x,
-                        int chunk, const float* gacc, const float* glogt,
-                        const float* resid, float* dgeom, float* drgbd,
+// `order`, `logt` and `last` are the forward's.
+int gsl_pregathered_bwd(const int* counts, const int* order,
+                        const float* geom, const float* rgbd, int num_tiles,
+                        int cap, int grid_x, int chunk, const float* gacc,
+                        const float* glogt, const float* logt,
+                        const int* last, float* dgeom, float* drgbd,
                         void* cuda_stream) {
   if (num_tiles == 0) return 0;
   if (chunk < 1 || cap < chunk) return (int)cudaErrorInvalidValue;
-  const int err = launch_tile_order(counts, num_tiles, cap, order,
-                                    (cudaStream_t)cuda_stream);
-  if (err != 0) return err;
   pregathered_bwd_kernel<<<num_tiles, kPix, 0, (cudaStream_t)cuda_stream>>>(
       counts, order, num_tiles, geom, rgbd, cap, grid_x, chunk, gacc, glogt,
-      resid, dgeom, drgbd);
+      logt, last, dgeom, drgbd);
   return (int)cudaGetLastError();
 }
 
 // CTAs per SM, registers per thread, shared memory per CTA and local bytes
-// per thread of K1-K4 (which = 0..3) at `chunk`, into out[0..3].
-int gsl_kernel_info(int which, int chunk, int* out) {
+// per thread of K1-K4 (which = 0..3), into out[0..3].
+int gsl_kernel_info(int which, int* out) {
   switch (which) {
     case 0:
     case 1:
-      return stream_kernel_info(which, chunk, out);
+      return stream_kernel_info(which, out);
     case 2:
-      return kernel_info(pregathered_fwd_kernel, 0, out);
+      return kernel_info(pregathered_fwd_kernel, out);
     case 3:
-      return kernel_info(pregathered_bwd_kernel, 0, out);
+      return kernel_info(pregathered_bwd_kernel, out);
     default:
       return (int)cudaErrorInvalidValue;
   }

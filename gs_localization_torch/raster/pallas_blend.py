@@ -8,7 +8,10 @@ forward   (K3) each 16x16 tile walks its own window geom (8, cap) rows
 backward  (K4) walks the visited chunks in reverse from the residuals and
           writes per-pair dL/d(geom rows 0-5) and dL/d(rgbd), summed over
           the tile's pixels, into the tile's own (8, cap) and (4, cap)
-          blocks; lanes it does not visit are zero.
+          blocks; lanes it does not visit are zero. The CUDA backward
+          takes what the CUDA forward recorded (its log_t and a
+          ``BlendWalk``): it is the adjoint of exactly the pairs the
+          forward applied.
 
 Two implementations of each, chosen by the device of the tensors:
 
@@ -35,7 +38,8 @@ import torch
 from .. import LAUNCHES
 from .. import _kernels
 from .blend import TileBlendOut
-from .stream_blend import (_blocks, _check, _fwd_block, _pixel_coords,
+from .stream_blend import (BlendWalk, _blocks, _check, _check_walk,
+                           _descending, _fwd_block, _new_walk, _pixel_coords,
                            _raise_on, _tile_out)
 
 _GEOM_ROWS = 8
@@ -135,10 +139,10 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _kernels.load()
     lib.gsl_pregathered_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P,
-                                        _P, _P, _P]
+                                        _P, _P, _P, _P]
     lib.gsl_pregathered_fwd.restype = _I
     lib.gsl_pregathered_bwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P,
-                                        _P, _P, _P, _P, _P]
+                                        _P, _P, _P, _P, _P, _P]
     lib.gsl_pregathered_bwd.restype = _I
     return lib
 
@@ -148,8 +152,7 @@ def tile_order(counts: torch.Tensor, cap: int) -> torch.Tensor:
     of the clamped counts, as int32 (the plain version of the order the
     kernels compute on the card). Block b walks tile ``order[b]``; outputs
     stay indexed by tile, so the order changes only when each tile runs."""
-    return torch.argsort(_counts(counts, cap), descending=True,
-                         stable=True).to(torch.int32)
+    return _descending(_counts(counts, cap))
 
 
 def _check_common(counts, geom, rgbd, ts: int, chunk: int) -> None:
@@ -173,17 +176,14 @@ def _check_common(counts, geom, rgbd, ts: int, chunk: int) -> None:
 
 
 def pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x: int, ts: int,
-                               chunk: int, order=None):
-    """Launch K3: -> accum (T,4,npix), log_t (T,npix,1), resid (T,npix,2).
-    ``order``, an int32 (T,) tensor if given, receives the tile order the
-    kernel ran in (scratch otherwise)."""
+                               chunk: int):
+    """Launch K3: -> accum (T,4,npix), log_t (T,npix,1), resid (T,npix,2)
+    and the ``BlendWalk`` that K4 takes."""
     _check_common(counts, geom, rgbd, ts, chunk)
     lib = _lib()
     num_tiles, _, cap = geom.shape
     npix = ts * ts
-    if order is None:
-        order = torch.empty_like(counts)
-    _check(order, "order", torch.int32, (num_tiles,), geom.device)
+    walk = _new_walk(num_tiles, npix, geom.device)
     out = dict(dtype=torch.float32, device=geom.device)
     accum = torch.empty((num_tiles, 4, npix), **out)
     log_t = torch.empty((num_tiles, npix, 1), **out)
@@ -191,36 +191,38 @@ def pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x: int, ts: int,
     with torch.cuda.device(geom.device):
         cs = torch.cuda.current_stream().cuda_stream
         rc = lib.gsl_pregathered_fwd(
-            counts.data_ptr(), order.data_ptr(), geom.data_ptr(),
+            counts.data_ptr(), walk.order.data_ptr(), geom.data_ptr(),
             rgbd.data_ptr(), num_tiles, cap, grid_x, chunk, accum.data_ptr(),
-            log_t.data_ptr(), resid.data_ptr(), cs)
+            log_t.data_ptr(), resid.data_ptr(), walk.last.data_ptr(), cs)
     _raise_on(lib, rc, "pregathered blend forward launch")
     LAUNCHES["pregathered_fwd"] += 1
-    return accum, log_t, resid
+    return accum, log_t, resid, walk
 
 
-def pregathered_blend_bwd_cuda(counts, geom, rgbd, gacc, glogt, resid,
-                               grid_x: int, ts: int, chunk: int):
-    """Launch K4: -> dgeom (T,8,cap), drgbd (T,4,cap); the kernel writes
-    every element, zero where no visited lane is."""
+def pregathered_blend_bwd_cuda(counts, geom, rgbd, gacc, glogt, log_t,
+                               walk: BlendWalk, grid_x: int, ts: int,
+                               chunk: int):
+    """Launch K4 on K3's ``log_t`` and ``walk``: -> dgeom (T,8,cap), drgbd
+    (T,4,cap); the kernel writes every element, zero where no walked lane
+    is."""
     _check_common(counts, geom, rgbd, ts, chunk)
     num_tiles, _, cap = geom.shape
     npix = ts * ts
     dev = geom.device
     _check(gacc, "gacc", torch.float32, (num_tiles, 4, npix), dev)
     _check(glogt, "glogt", torch.float32, (num_tiles, npix, 1), dev)
-    _check(resid, "resid", torch.float32, (num_tiles, npix, 2), dev)
+    _check(log_t, "log_t", torch.float32, (num_tiles, npix, 1), dev)
+    _check_walk(walk, num_tiles, npix, dev)
     lib = _lib()
     dgeom = torch.empty_like(geom)
     drgbd = torch.empty_like(rgbd)
-    order = torch.empty_like(counts)
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream().cuda_stream
         rc = lib.gsl_pregathered_bwd(
-            counts.data_ptr(), order.data_ptr(), geom.data_ptr(),
+            counts.data_ptr(), walk.order.data_ptr(), geom.data_ptr(),
             rgbd.data_ptr(), num_tiles, cap, grid_x, chunk, gacc.data_ptr(),
-            glogt.data_ptr(), resid.data_ptr(), dgeom.data_ptr(),
-            drgbd.data_ptr(), cs)
+            glogt.data_ptr(), log_t.data_ptr(), walk.last.data_ptr(),
+            dgeom.data_ptr(), drgbd.data_ptr(), cs)
     _raise_on(lib, rc, "pregathered blend backward launch")
     LAUNCHES["pregathered_bwd"] += 1
     return dgeom, drgbd
@@ -232,22 +234,23 @@ def pregathered_blend_bwd_cuda(counts, geom, rgbd, gacc, glogt, resid,
 
 def pregathered_blend_fwd(counts, geom, rgbd, grid_x: int, ts: int,
                           chunk: int):
-    """K3 on CUDA tensors, its plain version on CPU tensors."""
+    """K3 on CUDA tensors, its plain version on CPU tensors: -> accum,
+    log_t, resid and the walk for the backward (None on the CPU)."""
     if geom.is_cuda:
         return pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x, ts,
                                           chunk)
     if geom.device.type == "cpu":
-        return pregathered_blend_fwd_plain(counts, geom, rgbd, grid_x, ts,
-                                           chunk)
+        return (*pregathered_blend_fwd_plain(counts, geom, rgbd, grid_x, ts,
+                                             chunk), None)
     raise ValueError(f"unsupported device {geom.device}")
 
 
-def pregathered_blend_bwd(counts, geom, rgbd, gacc, glogt, resid,
+def pregathered_blend_bwd(counts, geom, rgbd, gacc, glogt, log_t, walk,
                           grid_x: int, ts: int, chunk: int):
     """K4 on CUDA tensors, its plain version on CPU tensors."""
     if geom.is_cuda:
         return pregathered_blend_bwd_cuda(counts, geom, rgbd, gacc, glogt,
-                                          resid, grid_x, ts, chunk)
+                                          log_t, walk, grid_x, ts, chunk)
     if geom.device.type == "cpu":
         return pregathered_blend_bwd_plain(counts, geom, rgbd, gacc, glogt,
                                            grid_x, ts, chunk)
@@ -260,19 +263,20 @@ class _PregatheredBlend(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, counts, geom, rgbd, grid_x, ts, chunk):
-        accum, log_t, resid = pregathered_blend_fwd(counts, geom, rgbd,
-                                                    grid_x, ts, chunk)
-        ctx.save_for_backward(counts, geom, rgbd, resid)
+        accum, log_t, _, walk = pregathered_blend_fwd(counts, geom, rgbd,
+                                                      grid_x, ts, chunk)
+        ctx.save_for_backward(counts, geom, rgbd, log_t)
+        ctx.walk = walk
         ctx.cfg = (grid_x, ts, chunk)
         return accum, log_t
 
     @staticmethod
     def backward(ctx, gacc, glogt):
-        counts, geom, rgbd, resid = ctx.saved_tensors
+        counts, geom, rgbd, log_t = ctx.saved_tensors
         grid_x, ts, chunk = ctx.cfg
         dgeom, drgbd = pregathered_blend_bwd(
-            counts, geom, rgbd, gacc.contiguous(), glogt.contiguous(), resid,
-            grid_x, ts, chunk)
+            counts, geom, rgbd, gacc.contiguous(), glogt.contiguous(), log_t,
+            ctx.walk, grid_x, ts, chunk)
         return None, dgeom, drgbd, None, None, None
 
 

@@ -6,7 +6,14 @@ forward   (K1) each 16x16 tile walks its chunk-aligned window
           first chunk at whose end every pixel has T < 1e-4.
 backward  (K2) walks the visited chunks in reverse from the residuals and
           writes per-pair dL/d(x, y, a, b, c, opa, r, g, b, depth), summed
-          over the tile's pixels, at the pair's own stream position.
+          over the tile's pixels, at the pair's own stream position. The
+          CUDA backward takes what the CUDA forward recorded (its log_t
+          and a ``BlendWalk``): it is the adjoint of exactly the pairs the
+          forward applied.
+
+K1/K2 run the same device code as the pregathered kernels K3/K4
+(``csrc/blend_common.cuh``): a stream window is a gathered window whose
+rows lie ``mrpad`` floats apart.
 
 Two implementations of each, chosen by the device of the tensors:
 
@@ -24,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -35,7 +43,10 @@ from .constants import ALPHA_MAX, ALPHA_MIN, LOG_T_EPS
 
 _RPAD = 16          # stream rows: 12 semantic rows, padded
 _TILE = 16          # the kernels run one 256-thread CTA per 16x16 tile
-_MAX_CHUNK = 512    # K2 shared memory: 368 * chunk bytes <= 227 KB
+# The chunks the CUDA wrappers take. The piece walks' shared memory does not
+# depend on the chunk, so the card sets no upper limit; a wider range would
+# be an option that no caller uses (the pipelines run chunk 256).
+_MAX_CHUNK = 512
 
 # plain versions: tiles per block, so that (tiles, 256, chunk) temporaries
 # stay near 2^22 elements whatever the scene
@@ -52,6 +63,20 @@ def _window(tstart, walk_counts, mrpad: int, chunk: int):
     count = torch.minimum(torch.clamp_min(walk_counts.long(), 0),
                           mrpad - chunk - start)
     return start, count
+
+
+def _descending(count: torch.Tensor) -> torch.Tensor:
+    """A stable descending argsort of per-tile walk counts, as int32: the
+    plain version of the tile order the kernels compute on the card."""
+    return torch.argsort(count, descending=True, stable=True).to(torch.int32)
+
+
+def tile_order(tstart: torch.Tensor, walk_counts: torch.Tensor, mrpad: int,
+               chunk: int) -> torch.Tensor:
+    """K1/K2's tile order, deepest first: the tiles by their clamped walk
+    counts, ties in tile order. Block b walks tile ``order[b]``; outputs
+    stay indexed by tile, so the order changes only when each tile runs."""
+    return _descending(_window(tstart, walk_counts, mrpad, chunk)[1])
 
 
 def _pixel_coords(tiles: torch.Tensor, grid_x: int, ts: int):
@@ -214,13 +239,35 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+class BlendWalk(NamedTuple):
+    """What a CUDA blend forward (K1, K3) records for its backward (K2,
+    K4): the tile order it ran in, (T,) int32, and for each pixel one past
+    the window lane of the last pair it applied, (T, npix) int32 (0 where
+    it applied none). The backward runs in that order and is the adjoint
+    of exactly those pairs."""
+    order: torch.Tensor
+    last: torch.Tensor
+
+
+def _new_walk(num_tiles: int, npix: int, device) -> BlendWalk:
+    out = dict(dtype=torch.int32, device=device)
+    return BlendWalk(torch.empty((num_tiles,), **out),
+                     torch.empty((num_tiles, npix), **out))
+
+
+def _check_walk(walk: BlendWalk, num_tiles: int, npix: int, device) -> None:
+    _check(walk.order, "walk.order", torch.int32, (num_tiles,), device)
+    _check(walk.last, "walk.last", torch.int32, (num_tiles, npix), device)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _kernels.load()
-    lib.gsl_stream_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+    lib.gsl_stream_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                   _P, _P, _P]
     lib.gsl_stream_fwd.restype = _I
-    lib.gsl_stream_bwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                                   _P, _P]
+    lib.gsl_stream_bwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                   _P, _P, _P, _P]
     lib.gsl_stream_bwd.restype = _I
     return lib
 
@@ -267,11 +314,13 @@ def _raise_on(lib, rc: int, what: str) -> None:
 
 def stream_blend_fwd_cuda(stream, tstart, walk_counts, grid_x: int, ts: int,
                           chunk: int):
-    """Launch K1: -> accum (T,4,npix), log_t (T,npix,1), resid (T,npix,2)."""
+    """Launch K1: -> accum (T,4,npix), log_t (T,npix,1), resid (T,npix,2)
+    and the ``BlendWalk`` that K2 takes."""
     _check_common(stream, tstart, walk_counts, ts, chunk)
     lib = _lib()
     num_tiles = tstart.shape[0]
     npix = ts * ts
+    walk = _new_walk(num_tiles, npix, stream.device)
     out = dict(dtype=torch.float32, device=stream.device)
     accum = torch.empty((num_tiles, 4, npix), **out)
     log_t = torch.empty((num_tiles, npix, 1), **out)
@@ -279,32 +328,37 @@ def stream_blend_fwd_cuda(stream, tstart, walk_counts, grid_x: int, ts: int,
     with torch.cuda.device(stream.device):
         cs = torch.cuda.current_stream().cuda_stream
         rc = lib.gsl_stream_fwd(
-            tstart.data_ptr(), walk_counts.data_ptr(), stream.data_ptr(),
-            num_tiles, stream.shape[1], grid_x, chunk, accum.data_ptr(),
-            log_t.data_ptr(), resid.data_ptr(), cs)
+            tstart.data_ptr(), walk_counts.data_ptr(), walk.order.data_ptr(),
+            stream.data_ptr(), num_tiles, stream.shape[1], grid_x, chunk,
+            accum.data_ptr(), log_t.data_ptr(), resid.data_ptr(),
+            walk.last.data_ptr(), cs)
     _raise_on(lib, rc, "stream blend forward launch")
     LAUNCHES["stream_fwd"] += 1
-    return accum, log_t, resid
+    return accum, log_t, resid, walk
 
 
-def stream_blend_bwd_cuda(stream, tstart, walk_counts, gacc, glogt, resid,
-                          grid_x: int, ts: int, chunk: int) -> torch.Tensor:
-    """Launch K2: -> dstream (16, mrpad), zero where no tile writes."""
+def stream_blend_bwd_cuda(stream, tstart, walk_counts, gacc, glogt, log_t,
+                          walk: BlendWalk, grid_x: int, ts: int,
+                          chunk: int) -> torch.Tensor:
+    """Launch K2 on K1's ``log_t`` and ``walk``: -> dstream (16, mrpad),
+    zero where no tile writes."""
     _check_common(stream, tstart, walk_counts, ts, chunk)
     num_tiles = tstart.shape[0]
     npix = ts * ts
     dev = stream.device
     _check(gacc, "gacc", torch.float32, (num_tiles, 4, npix), dev)
     _check(glogt, "glogt", torch.float32, (num_tiles, npix, 1), dev)
-    _check(resid, "resid", torch.float32, (num_tiles, npix, 2), dev)
+    _check(log_t, "log_t", torch.float32, (num_tiles, npix, 1), dev)
+    _check_walk(walk, num_tiles, npix, dev)
     lib = _lib()
     dstream = torch.zeros_like(stream)
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream().cuda_stream
         rc = lib.gsl_stream_bwd(
-            tstart.data_ptr(), walk_counts.data_ptr(), stream.data_ptr(),
-            num_tiles, stream.shape[1], grid_x, chunk, gacc.data_ptr(),
-            glogt.data_ptr(), resid.data_ptr(), dstream.data_ptr(), cs)
+            tstart.data_ptr(), walk_counts.data_ptr(), walk.order.data_ptr(),
+            stream.data_ptr(), num_tiles, stream.shape[1], grid_x, chunk,
+            gacc.data_ptr(), glogt.data_ptr(), log_t.data_ptr(),
+            walk.last.data_ptr(), dstream.data_ptr(), cs)
     _raise_on(lib, rc, "stream blend backward launch")
     LAUNCHES["stream_bwd"] += 1
     return dstream
@@ -316,22 +370,23 @@ def stream_blend_bwd_cuda(stream, tstart, walk_counts, gacc, glogt, resid,
 
 def stream_blend_fwd(stream, tstart, walk_counts, grid_x: int, ts: int,
                      chunk: int):
-    """K1 on CUDA tensors, its plain version on CPU tensors."""
+    """K1 on CUDA tensors, its plain version on CPU tensors: -> accum,
+    log_t, resid and the walk for the backward (None on the CPU)."""
     if stream.is_cuda:
         return stream_blend_fwd_cuda(stream, tstart, walk_counts, grid_x, ts,
                                      chunk)
     if stream.device.type == "cpu":
-        return stream_blend_fwd_plain(stream, tstart, walk_counts, grid_x,
-                                      ts, chunk)
+        return (*stream_blend_fwd_plain(stream, tstart, walk_counts, grid_x,
+                                        ts, chunk), None)
     raise ValueError(f"unsupported device {stream.device}")
 
 
-def stream_blend_bwd(stream, tstart, walk_counts, gacc, glogt, resid,
+def stream_blend_bwd(stream, tstart, walk_counts, gacc, glogt, log_t, walk,
                      grid_x: int, ts: int, chunk: int) -> torch.Tensor:
     """K2 on CUDA tensors, its plain version on CPU tensors."""
     if stream.is_cuda:
         return stream_blend_bwd_cuda(stream, tstart, walk_counts, gacc,
-                                     glogt, resid, grid_x, ts, chunk)
+                                     glogt, log_t, walk, grid_x, ts, chunk)
     if stream.device.type == "cpu":
         return stream_blend_bwd_plain(stream, tstart, walk_counts, gacc,
                                       glogt, grid_x, ts, chunk)
@@ -345,19 +400,21 @@ class _StreamBlend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, stream_t, tstart, walk_counts, kept_al, grid_x, ts,
                 chunk):
-        accum, log_t, resid = stream_blend_fwd(stream_t, tstart, walk_counts,
-                                               grid_x, ts, chunk)
-        ctx.save_for_backward(stream_t, tstart, walk_counts, kept_al, resid)
+        accum, log_t, _, walk = stream_blend_fwd(stream_t, tstart,
+                                                 walk_counts, grid_x, ts,
+                                                 chunk)
+        ctx.save_for_backward(stream_t, tstart, walk_counts, kept_al, log_t)
+        ctx.walk = walk
         ctx.cfg = (grid_x, ts, chunk)
         return accum, log_t
 
     @staticmethod
     def backward(ctx, gacc, glogt):
-        stream_t, tstart, walk_counts, kept_al, resid = ctx.saved_tensors
+        stream_t, tstart, walk_counts, kept_al, log_t = ctx.saved_tensors
         grid_x, ts, chunk = ctx.cfg
         dstream = stream_blend_bwd(stream_t, tstart, walk_counts,
                                    gacc.contiguous(), glogt.contiguous(),
-                                   resid, grid_x, ts, chunk)
+                                   log_t, ctx.walk, grid_x, ts, chunk)
         # positions past the live aligned stream carry no pair
         pos_ok = torch.arange(stream_t.shape[1],
                               device=stream_t.device) < kept_al

@@ -24,6 +24,7 @@ from gs_localization_torch.raster.constants import LOG_T_EPS
 from gs_localization_torch.raster.pose_mode import (
     _project_pairs, _project_stream, build_pair_pack, build_stream_pair_pack,
     render_pose_mode)
+from blend_edges import EDGE_GRID, drift_window, edge_stream, edge_windows
 
 pytestmark = pytest.mark.cuda
 
@@ -45,7 +46,6 @@ TOL_FWD = (1e-4, 1e-4)
 TOL_LOGT = 1e-4
 EPS_BAND = 1e-4
 TOL_BWD = (5e-3, 1e-2)
-EDGE_GRID = (4, 3)
 
 
 @pytest.fixture
@@ -106,7 +106,7 @@ def test_kernels_match_plain(case):
     pack, chunk = case["pack"], case["chunk"]
     args = (case["stream"], pack.tstart, pack.walk_counts, 6, 16, chunk)
     before = dict(gsl.LAUNCHES)
-    acc_k, logt_k, resid_k = sb.stream_blend_fwd_cuda(*args)
+    acc_k, logt_k, resid_k, walk_k = sb.stream_blend_fwd_cuda(*args)
     acc_p, logt_p, resid_p = sb.stream_blend_fwd_plain(*args)
     assert gsl.LAUNCHES["stream_fwd"] == before["stream_fwd"] + 1
     # sums in another order (sequential vs cumsum); log_t is held as
@@ -120,13 +120,13 @@ def test_kernels_match_plain(case):
     gacc = torch.randn(acc_k.shape, generator=gen).to(case["device"])
     glogt = (torch.randn(logt_k.shape, generator=gen).to(case["device"])
              * torch.exp(logt_k))
-    d_k = sb.stream_blend_bwd_cuda(*args[:3], gacc, glogt, resid_k, 6, 16,
-                                   chunk)
+    d_k = sb.stream_blend_bwd_cuda(*args[:3], gacc, glogt, logt_k, walk_k,
+                                   6, 16, chunk)
     d_p = sb.stream_blend_bwd_plain(*args[:3], gacc, glogt, 6, 16, chunk)
     torch.cuda.synchronize()
     assert gsl.LAUNCHES["stream_bwd"] == before["stream_bwd"] + 1
     # analytic reverse walk vs autograd of the forward, log T rebuilt by
-    # subtraction: the JAX suite's Gaussian-gradient tolerance
+    # subtraction from log_t: the JAX suite's Gaussian-gradient tolerance
     torch.testing.assert_close(d_k, d_p, atol=5e-3, rtol=1e-2)
     assert (d_k[[6, 7, 12, 13, 14, 15]] == 0).all()
 
@@ -192,56 +192,12 @@ def test_gaussian_fields_round_trip(cuda_device):
 
 # ---- the pregathered layout: K3/K4 ------------------------------------------
 
-def edge_windows(chunk: int, seed: int = 0):
-    """Seeded pregathered windows (numpy) of EDGE_GRID tiles at cap = 8
-    chunks, whose counts sit at the kernels' edges, in shuffled order: 0;
-    1, 63, 65 and 255 (ending inside a 64-lane piece); 64 and 128 (on a
-    piece's end); the cap; 7 chunks and 8 lanes; and a tile of opaque
-    splats that saturates in its first chunk (k_stop 1, later chunks
-    unvisited). Deep tiles hold faint splats and walk every chunk."""
-    rng = np.random.default_rng(seed)
-    gx, gy = EDGE_GRID
-    cap = 8 * chunk
-    counts = np.array([65, 0, cap, 1, 255, 63, 7 * chunk + 8, cap, 300, 64,
-                       128, 4 * chunk + 5], np.int32)
-    t = np.arange(gx * gy)
-    ox = ((t % gx) * 16 + 7.5)[:, None]
-    oy = ((t // gx) * 16 + 7.5)[:, None]
-    shape = (len(t), cap)
-    x = ox + rng.uniform(-14, 14, shape)
-    y = oy + rng.uniform(-14, 14, shape)
-    sa = rng.uniform(0.02, 0.4, shape)
-    sc = rng.uniform(0.02, 0.4, shape)
-    b = rng.uniform(-0.5, 0.5, shape) * np.sqrt(sa * sc)
-    opa = rng.uniform(0.05, 0.6, shape)
-    deep = counts > 2 * chunk
-    opa[deep] = rng.uniform(0.004, 0.03, (int(deep.sum()), cap))
-    x[7], y[7] = ox[7] + rng.uniform(-2, 2, cap), oy[7] + rng.uniform(-2, 2, cap)
-    sa[7], sc[7], b[7], opa[7] = 0.005, 0.005, 0.0, 0.95
-    valid = (rng.uniform(size=shape) > 0.1).astype(np.float64)
-    geom = np.stack([x, y, sa, b, sc, opa, valid, np.zeros(shape)], 1)
-    rgbd = np.concatenate([rng.uniform(0, 1, (len(t), 3, cap)),
-                           rng.uniform(1, 5, (len(t), 1, cap))], 1)
-    return counts, geom.astype(np.float32), rgbd.astype(np.float32)
-
-
-def hold_pregathered(counts, geom, rgbd, grid_x, chunk, flips=False):
-    """K3 and K4 against their plain versions, k_stop equal on every tile,
-    the tile order the card computed, the same bits from a second launch,
-    and K4's lanes at or past each tile's walked end (and its valid and pad
-    rows) exactly 0. The forward is held as K1 is (accum and T at 1e-5);
-    with ``flips``, at chip_smoke.py's tolerances with its accounting of
-    the flipped pixels. Returns K3's resid."""
-    args = (counts, geom, rgbd, grid_x, 16, chunk)
-    before = dict(gsl.LAUNCHES)
-    order = torch.empty_like(counts)
-    out_k = pb.pregathered_blend_fwd_cuda(*args, order=order)
-    again = pb.pregathered_blend_fwd_cuda(*args)
-    # the order the card computed: deepest first, ties in tile order
-    assert torch.equal(order.cpu(), pb.tile_order(counts.cpu(), geom.shape[2]))
-    out_p = pb.pregathered_blend_fwd_plain(*args)
-    assert gsl.LAUNCHES["pregathered_fwd"] == before["pregathered_fwd"] + 2
-    assert all(torch.equal(a, b) for a, b in zip(out_k, again))
+def _hold_forward(out_k, out_p, rgbd_max: float, flips: bool):
+    """A forward kernel's (accum, log_t, resid) against its plain version's:
+    k_stop equal on every tile; accum and T at 1e-5 or, with ``flips``, at
+    chip_smoke.py's tolerances with its accounting of the flipped pixels.
+    Returns the mask of the pixels no pair flips (all ones without
+    ``flips``)."""
     (acc_k, logt_k, resid_k), (acc_p, logt_p, resid_p) = out_k, out_p
     assert torch.equal(resid_k[..., 1], resid_p[..., 1])       # k_stop
     keep = torch.ones_like(logt_k[..., 0])
@@ -257,21 +213,55 @@ def hold_pregathered(counts, geom, rgbd, grid_x, chunk, flips=False):
         d_t = (torch.exp(logt_k) - torch.exp(logt_p)).abs()[..., 0]
         assert float((d_t * (1 - keep)).max()) <= 1e-4
         d_acc = (acc_k - acc_p).abs() * (1 - keep)[:, None]
-        assert float(d_acc.max()) <= 1e-4 * float(rgbd.abs().max())
+        assert float(d_acc.max()) <= 1e-4 * rgbd_max
     else:
         # as K1: sums in another order, log_t held as T = exp(log_t)
         torch.testing.assert_close(acc_k, acc_p, atol=1e-5, rtol=1e-5)
         torch.testing.assert_close(torch.exp(logt_k), torch.exp(logt_p),
                                    atol=1e-5, rtol=1e-5)
+    return keep
+
+
+def _cotangents(acc_k, logt_k, keep):
+    """Seeded cotangents of accum and log_t (through T = exp(log_t)), zero
+    on the pixels ``keep`` leaves out."""
     gen = torch.Generator().manual_seed(0)
-    gacc = torch.randn(acc_k.shape, generator=gen).to(geom.device)
-    glogt = (torch.randn(logt_k.shape, generator=gen).to(geom.device)
+    gacc = torch.randn(acc_k.shape, generator=gen).to(acc_k.device)
+    glogt = (torch.randn(logt_k.shape, generator=gen).to(acc_k.device)
              * torch.exp(logt_k))
-    gacc, glogt = gacc * keep[:, None], glogt * keep[..., None]
-    d_k = pb.pregathered_blend_bwd_cuda(*args[:3], gacc, glogt, resid_k,
-                                        grid_x, 16, chunk)
-    d_again = pb.pregathered_blend_bwd_cuda(*args[:3], gacc, glogt, resid_k,
-                                            grid_x, 16, chunk)
+    return gacc * keep[:, None], glogt * keep[..., None]
+
+
+def _same(out_a, out_b) -> bool:
+    """Two forward launches' outputs, their walks included, bit for bit."""
+    (*ta, wa), (*tb, wb) = out_a, out_b
+    return all(torch.equal(a, b) for a, b in zip(ta + list(wa), tb + list(wb)))
+
+
+def hold_pregathered(counts, geom, rgbd, grid_x, chunk, flips=False):
+    """K3 and K4 against their plain versions, k_stop equal on every tile,
+    the tile order the card computed, the same bits from a second launch,
+    and K4's lanes at or past each tile's walked end (and its valid and pad
+    rows) exactly 0. The forward is held as K1 is (accum and T at 1e-5);
+    with ``flips``, at chip_smoke.py's tolerances with its accounting of
+    the flipped pixels. Returns K3's outputs."""
+    args = (counts, geom, rgbd, grid_x, 16, chunk)
+    before = dict(gsl.LAUNCHES)
+    out_k = pb.pregathered_blend_fwd_cuda(*args)
+    again = pb.pregathered_blend_fwd_cuda(*args)
+    # the order the card computed: deepest first, ties in tile order
+    assert torch.equal(out_k[3].order.cpu(),
+                       pb.tile_order(counts.cpu(), geom.shape[2]))
+    out_p = pb.pregathered_blend_fwd_plain(*args)
+    assert gsl.LAUNCHES["pregathered_fwd"] == before["pregathered_fwd"] + 2
+    assert _same(out_k, again)
+    acc_k, logt_k, resid_k, walk_k = out_k
+    keep = _hold_forward(out_k[:3], out_p, float(rgbd.abs().max()), flips)
+    gacc, glogt = _cotangents(acc_k, logt_k, keep)
+    d_k = pb.pregathered_blend_bwd_cuda(*args[:3], gacc, glogt, logt_k,
+                                        walk_k, grid_x, 16, chunk)
+    d_again = pb.pregathered_blend_bwd_cuda(*args[:3], gacc, glogt, logt_k,
+                                            walk_k, grid_x, 16, chunk)
     d_p = pb.pregathered_blend_bwd_plain(*args[:3], gacc, glogt, grid_x, 16,
                                          chunk)
     torch.cuda.synchronize()
@@ -287,7 +277,7 @@ def hold_pregathered(counts, geom, rgbd, grid_x, chunk, flips=False):
     past = torch.arange(cap, device=geom.device)[None, :] >= end[:, None]
     assert all(bool((d.transpose(0, 1)[:, past] == 0).all()) for d in d_k)
     assert (d_k[0][:, 6:] == 0).all()
-    return resid_k
+    return out_k
 
 
 def test_pregathered_kernels_match_plain(case):
@@ -303,11 +293,119 @@ def test_pregathered_kernels_match_plain(case):
     for chunk in (256, 96):
         counts, geom_e, rgbd_e = (torch.tensor(a, device=case["device"])
                                   for a in edge_windows(chunk))
-        resid = hold_pregathered(counts, geom_e, rgbd_e, EDGE_GRID[0], chunk,
-                                 flips=True)
-        k_stop = resid[:, 0, 1]
+        out = hold_pregathered(counts, geom_e, rgbd_e, EDGE_GRID[0], chunk,
+                               flips=True)
+        k_stop = out[2][:, 0, 1]
         assert float(k_stop[7]) == 1 and float(k_stop[6]) == 8
         assert float(k_stop[2]) == 8 and float(k_stop[1]) == 0
+
+
+# ---- the stream layout at the edge windows: K1/K2 ---------------------------
+
+def _edge_inputs(chunk: int, device):
+    """edge_windows(chunk) as (counts, geom, rgbd) and laid into a stream as
+    (stream, tstart, walk_counts), on ``device``."""
+    counts, geom, rgbd = edge_windows(chunk)
+    stream, tstart, wcount = edge_stream(counts, geom, rgbd, chunk)
+    return ([torch.tensor(a, device=device) for a in (counts, geom, rgbd)],
+            [torch.tensor(a, device=device) for a in (stream, tstart, wcount)])
+
+
+def hold_stream(stream, tstart, wcount, grid_x, chunk, flips=False):
+    """K1/K2 held as hold_pregathered holds K3/K4: against the plain
+    versions (with ``flips``, the flipped pixels accounted for), k_stop on
+    every tile, the tile order the card computed, the same bits from a
+    second launch, and dstream exactly 0 in rows 6, 7 and 12-15 and at
+    every position outside the walked lanes. Returns K1's outputs."""
+    args = (stream, tstart, wcount, grid_x, 16, chunk)
+    before = dict(gsl.LAUNCHES)
+    out_k = sb.stream_blend_fwd_cuda(*args)
+    again = sb.stream_blend_fwd_cuda(*args)
+    # the order the card computed: deepest first, ties in tile order
+    assert torch.equal(out_k[3].order.cpu(), sb.tile_order(
+        tstart.cpu(), wcount.cpu(), stream.shape[1], chunk))
+    out_p = sb.stream_blend_fwd_plain(*args)
+    assert gsl.LAUNCHES["stream_fwd"] == before["stream_fwd"] + 2
+    assert _same(out_k, again)
+    acc_k, logt_k, resid_k, walk_k = out_k
+    keep = _hold_forward(out_k[:3], out_p, float(stream[8:12].abs().max()),
+                         flips)
+    gacc, glogt = _cotangents(acc_k, logt_k, keep)
+    bargs = (*args[:3], gacc, glogt, logt_k, walk_k, *args[3:])
+    d_k = sb.stream_blend_bwd_cuda(*bargs)
+    d_again = sb.stream_blend_bwd_cuda(*bargs)
+    d_p = sb.stream_blend_bwd_plain(*args[:3], gacc, glogt, *args[3:])
+    torch.cuda.synchronize()
+    assert gsl.LAUNCHES["stream_bwd"] == before["stream_bwd"] + 2
+    assert torch.equal(d_k, d_again)
+    torch.testing.assert_close(d_k, d_p, atol=TOL_BWD[0], rtol=TOL_BWD[1])
+    # the walked lanes: [tstart, tstart + min(count, k_stop * chunk))
+    k_stop = resid_k[:, 0, 1]
+    end = tstart.long() + torch.minimum(wcount.long(), k_stop.long() * chunk)
+    pos = torch.arange(stream.shape[1], device=stream.device)[None, :]
+    walked = ((pos >= tstart[:, None]) & (pos < end[:, None])).any(0)
+    assert (d_k[:, ~walked] == 0).all()
+    assert (d_k[[6, 7, 12, 13, 14, 15]] == 0).all()
+    assert (d_k[:, walked] != 0).any()
+    return out_k
+
+
+@pytest.mark.parametrize("chunk", (256, 96))
+def test_stream_kernels_match_plain_at_edge_windows(cuda_device, chunk):
+    """K1/K2 at the edge windows laid into a stream, held as K3/K4 are held
+    there (hold_stream)."""
+    _, (stream, tstart, wcount) = _edge_inputs(chunk, cuda_device)
+    out = hold_stream(stream, tstart, wcount, EDGE_GRID[0], chunk, flips=True)
+    k_stop = out[2][:, 0, 1]
+    assert float(k_stop[7]) == 1 and float(k_stop[6]) == 8
+    assert float(k_stop[2]) == 8 and float(k_stop[1]) == 0
+
+
+def test_kernels_follow_their_forward_after_long_walks(cuda_device):
+    """drift_window: pixels whose last applied pair lies within 1e-4 of
+    log(1e-4) walk ~4,000 pairs past saturation, where log T rebuilt by
+    subtraction through every walked pair misses that pair on about half
+    of them (the TPU kernel's rule: test_torch_stream_blend.py holds its
+    backward off the plain one there). K1/K3 record each planted pixel's
+    last applied lane, and K2/K4, held to the plain versions in both
+    layouts, follow that record."""
+    counts, geom, rgbd, planted = drift_window()
+    stream, tstart, wcount = (torch.tensor(a, device=cuda_device) for a in
+                              edge_stream(counts, geom, rgbd, 256))
+    counts, geom, rgbd = (torch.tensor(a, device=cuda_device)
+                          for a in (counts, geom, rgbd))
+    out = hold_pregathered(counts, geom, rgbd, 1, 256)
+    assert torch.equal(out[3].last[0, planted[:, 0]].cpu(),
+                       torch.tensor(planted[:, 1], dtype=torch.int32))
+    out_s = hold_stream(stream, tstart, wcount, 1, 256)
+    assert torch.equal(out_s[3].last, out[3].last)
+
+
+@pytest.mark.parametrize("chunk", (256, 96))
+def test_stream_kernels_equal_pregathered_kernels(cuda_device, chunk):
+    """K1/K2 and K3/K4 run one forward and one backward body, so on the
+    same windows (tile t's at stream position t * cap) they give the same
+    bits: the forward's outputs and walks, and the backward's gradients at
+    every lane, zeros included."""
+    (counts, geom, rgbd), (stream, tstart, wcount) = _edge_inputs(
+        chunk, cuda_device)
+    gx = EDGE_GRID[0]
+    out_s = sb.stream_blend_fwd_cuda(stream, tstart, wcount, gx, 16, chunk)
+    out_g = pb.pregathered_blend_fwd_cuda(counts, geom, rgbd, gx, 16, chunk)
+    assert _same(out_s, out_g)
+    gacc, glogt = _cotangents(out_s[0], out_s[1],
+                              torch.ones_like(out_s[1][..., 0]))
+    d_s = sb.stream_blend_bwd_cuda(stream, tstart, wcount, gacc, glogt,
+                                   out_s[1], out_s[3], gx, 16, chunk)
+    dgeom, drgbd = pb.pregathered_blend_bwd_cuda(counts, geom, rgbd, gacc,
+                                                 glogt, out_g[1], out_g[3],
+                                                 gx, 16, chunk)
+    torch.cuda.synchronize()
+    num_tiles, _, cap = geom.shape
+    blocks = d_s[:12, :num_tiles * cap].reshape(12, num_tiles, cap)
+    assert torch.equal(blocks[:8].transpose(0, 1), dgeom)
+    assert torch.equal(blocks[8:].transpose(0, 1), drgbd)
+    assert (d_s[:, num_tiles * cap:] == 0).all() and (d_s[12:] == 0).all()
 
 
 def test_pregathered_cuda_path_matches_cpu_path(case):

@@ -19,8 +19,10 @@ from gs_localization_torch.pipelines.localize import (
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gs_localization_tpu")
+# the card tests and their helper run where JAX is not installed
 PORT_FILES = sorted((ROOT / "gs_localization_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "blend_ablation.py"]
+    ROOT / "chip_smoke.py", ROOT / "blend_ablation.py",
+    ROOT / "tests" / "test_torch_cuda.py", ROOT / "tests" / "blend_edges.py"]
 
 
 def _imported_roots(path: pathlib.Path):
