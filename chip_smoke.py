@@ -48,7 +48,22 @@
    windows), with the card's SM clock read before and after;
 10. splits a refinement iteration and a training step into their parts and
    profiles 20 of each (torch.profiler: the device's busy share and the
-   device time by kernel).
+   device time by kernel);
+11. scene runner: writes a raw 7-Scenes layout at 640x480 under
+   ``build/`` (8 training frames in seq-01, 4 test frames in seq-02,
+   colour and 16-bit millimetre depth PNGs rendered from the bench map,
+   the split files, ``sparse_dslam/0`` with the true poses), stands in for
+   the sfm stage (``sfm_points.npz`` with the bench map's means and DC
+   colours, ``results_dense.txt`` with the test poses moved by 2.5 cm and
+   1 degree) and runs ``gs_localization_torch.pipelines.run_scene.main``
+   with ``--preset seven_scenes`` and its defaults (the stream layout):
+   prepare (8 / 4 images), train 300 iterations (K1/K2 launched, K3/K4
+   not; the logged held-out PSNR above the initial map's; the PLY
+   reloads) and localize (4 poses in results.txt, metrics.json, the
+   median error falls); before training, K1/K2 through ``blend_stream``
+   on the initial map's pack at its first training view against the plain
+   versions (``[scene-train] K1/K2 vs plain``); ms per training step on
+   both layouts from that map, and ms per localization iteration.
 
 Prints one JSON line of kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -81,6 +96,9 @@ N_TIMED = 25
 N_VIEWS, N_TEST_VIEWS = 10, 2
 N_TRAIN = 300
 N_PAIR_QUERIES = 2
+# the scene runner's 7-Scenes layout: frames of seq-01 train, of seq-02 test
+N_SCENE_TRAIN, N_SCENE_TEST = 8, 4
+SCENE_ITERS = 300
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_FP32 = 67e12     # FLOP/s on the CUDA cores, a fused multiply-add as 2
@@ -733,6 +751,126 @@ def perturbed(cam, rng, rot: float, trans: float):
                                        device=cam.device))
 
 
+class Tee:
+    """A text stream that keeps what is written and passes it on."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def write_png(path, img, depth: bool) -> None:
+    """8-bit RGB colour, or 16-bit millimetre depth, as 7-Scenes stores
+    them."""
+    from PIL import Image
+
+    if depth:
+        arr = np.clip(np.round(img * 1000.0), 0, 65535).astype(np.uint16)
+    else:
+        arr = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    Image.fromarray(arr).save(path)
+
+
+def write_seven_scenes(root: Path, g, views, cfg):
+    """A raw 7-Scenes layout of the views at their width: colour and depth
+    PNGs rendered from g (the first N_SCENE_TRAIN in seq-01, the rest in
+    seq-02), TrainSplit.txt / TestSplit.txt, and sparse_dslam/0 with the
+    true poses and no points. Returns {flat image name: w2c (float64)}."""
+    import torch
+    from gs_localization_torch.core.camera import rotmat_to_quat
+    from gs_localization_torch.data.colmap import (
+        ColmapCamera, ColmapImage, write_colmap_model_text)
+    from gs_localization_torch.raster import rasterize
+
+    poses, images = {}, {}
+    for i, v in enumerate(views):
+        seq, k = (("seq-01", i) if i < N_SCENE_TRAIN
+                  else ("seq-02", i - N_SCENE_TRAIN))
+        (root / seq).mkdir(parents=True, exist_ok=True)
+        with torch.no_grad():
+            r = rasterize(g, v, cfg)
+        check(not bool(r.overflow) and not bool(r.tile_overflow),
+              "scene view render overflow")
+        write_png(root / seq / f"frame-{k:06d}.color.png",
+                  r.color.cpu().numpy(), depth=False)
+        write_png(root / seq / f"frame-{k:06d}.depth.png",
+                  r.depth.cpu().numpy(), depth=True)
+        w2c = v.w2c.cpu().numpy().astype(np.float64)
+        name = f"{seq}-frame-{k:06d}-color.png"
+        images[i + 1] = ColmapImage(i + 1, rotmat_to_quat(w2c[:3, :3]),
+                                    w2c[:3, 3], 1, name, np.zeros((0, 2)),
+                                    np.zeros((0,), np.int64))
+        poses[name] = w2c
+    (root / "TrainSplit.txt").write_text("sequence1\n")
+    (root / "TestSplit.txt").write_text("sequence2\n")
+    v0 = views[0]
+    cams = {1: ColmapCamera(1, "PINHOLE", v0.width, v0.height, np.array(
+        [float(v0.fx), float(v0.fy), float(v0.cx), float(v0.cy)]))}
+    write_colmap_model_text(str(root / "sparse_dslam" / "0"), cams, images,
+                            {})
+    return poses
+
+
+def scene_pack_check(label, g0, cam, rcfg, grid_x, seed):
+    """K1/K2 through ``blend_stream`` on g0's pack at cam against the plain
+    versions: K1 vs plain on the assembled stream (check_forward), then the
+    pack gradient, i.e. K2 and the gather's adjoint (``index_add_``,
+    atomics), against the plain K2 and autograd of the same gather, for
+    one set of cotangents (check_backward, rows = the 12 pack rows).
+    Returns the max abs errors."""
+    import torch
+    from gs_localization_torch.raster import stream_blend as sb
+    from gs_localization_torch.raster.preprocess import preprocess
+    from gs_localization_torch.raster.rasterize import (bin_stream_for,
+                                                        stream_pack)
+
+    with torch.no_grad():
+        prep = preprocess(g0, cam)
+        pack = stream_pack(prep, prep.means2d)
+        sbins = bin_stream_for(prep, cam, rcfg)
+        stream_t = sb.assemble_stream(pack, sbins.gid_of_pos, CHUNK)
+    check(not bool(sbins.overflow) and not bool(sbins.tile_overflow),
+          f"[{label}] bin_stream overflow")
+    args = (stream_t, sbins.tstart, sbins.walk_counts)
+    out_k = sb.stream_blend_fwd_cuda(*args, grid_x, 16, CHUNK)
+    out_p = sb.stream_blend_fwd_plain(*args, grid_x, 16, CHUNK)
+    e_fwd, flip = check_forward(label, "K1", out_k, out_p,
+                                float(stream_t[8:12].abs().max()))
+    gacc, glogt = cotangents(out_k[0], out_k[1], seed)
+    pos_ok = (torch.arange(stream_t.shape[1], device=stream_t.device)
+              < sbins.kept_al)[None, :]
+
+    def grads(ga, gl):
+        pk = pack.clone().requires_grad_()
+        out = sb.blend_stream(pk, sbins, grid_x, 16, chunk=CHUNK)
+        d_k, = torch.autograd.grad(
+            (out.color, out.depth, out.log_t), (pk,),
+            (ga[:, :3].transpose(1, 2), ga[:, 3], gl[..., 0]))
+        pp = pack.clone().requires_grad_()
+        st = sb.assemble_stream(pp, sbins.gid_of_pos, CHUNK)
+        dst = sb.stream_blend_bwd_plain(*args, ga, gl, grid_x, 16, CHUNK)
+        d_p, = torch.autograd.grad(st, (pp,), torch.where(pos_ok, dst, 0.0))
+        return [(d_k.T.contiguous(), d_p.T.contiguous())]
+
+    e_bwd, _ = check_backward(label, "K1/K2 pack gradient", grads, gacc,
+                              glogt, flip)
+    print(f"[{label}] K1/K2 vs plain: through blend_stream on the initial "
+          f"map's pack ({pack.shape[0]} Gaussians, {int(sbins.kept_al)} "
+          f"stream lanes, {int(flip.sum())} flipped pixels): forward max|d| "
+          f"{e_fwd:.3e}, pack gradient max|d| {e_bwd:.3e} (tol atol "
+          f"{TOL_BWD[0]} rtol {TOL_BWD[1]}, flip accounting as K2's)")
+    return e_fwd, e_bwd
+
+
 def localize_checked(label, g, queries, init, gt_w2c, pcfg, cfg):
     """localize_queries with the launch counters set to 0 just before and
     read just after; every query's error must fall. Returns (launches,
@@ -1161,6 +1299,209 @@ def main() -> None:
         err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
         del pk, geom_q, rgbd_q
 
+    # ---- the scene runner on a 7-Scenes layout: stream training, K1/K2 ------
+    with phase("scene runner (stream training, K1/K2)"):
+        from gs_localization_torch.core import sh as sh_lib
+        from gs_localization_torch.core.camera import (quat_to_rotmat,
+                                                       rotmat_to_quat)
+        from gs_localization_torch.core.gaussians import GaussianParams
+        from gs_localization_torch.data.scene import load_depth, load_image
+        from gs_localization_torch.data.seven_scenes import (
+            load_seven_scenes_scene)
+        from gs_localization_torch.pipelines import run_scene
+        from gs_localization_torch.sfm.io import (read_pose_results,
+                                                  write_pose_results)
+
+        (ROOT / "build").mkdir(exist_ok=True)
+        scene_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_scene_",
+                                          dir=ROOT / "build"))
+        try:
+            root = scene_dir / "chess"
+            rng_s = np.random.default_rng(13)
+            views_s = [cam] + [perturbed(cam, rng_s, 0.03, 0.1) for _ in
+                               range(N_SCENE_TRAIN + N_SCENE_TEST - 1)]
+            true_w2c = write_seven_scenes(root, g, views_s, cfg)
+            # the sfm stage is not ported: write its two files
+            out_s = root / "output_tpu"
+            out_s.mkdir()
+            pts = g.xyz.cpu().numpy()
+            cols = np.clip(sh_lib.sh_dc_to_rgb(
+                g.features_dc[:, 0].cpu().numpy()), 0.0, 1.0)
+            np.savez(out_s / "sfm_points.npz", points=pts,
+                     colors=cols.astype(np.float32))
+            init_s, init_err = {}, []
+            test_names = list(true_w2c)[N_SCENE_TRAIN:]
+            for name, cam_t in zip(test_names, views_s[N_SCENE_TRAIN:]):
+                gt_w = true_w2c[name]
+                w = perturbed(cam_t, rng_s, np.deg2rad(1.0), 0.025
+                              ).w2c.cpu().numpy().astype(np.float64)
+                init_s[name] = (rotmat_to_quat(w[:3, :3]), w[:3, 3])
+                init_err.append(pose_errors(w[:3, :3], w[:3, 3],
+                                            gt_w[:3, :3], gt_w[:3, 3]))
+            write_pose_results(str(out_s / "results_dense.txt"), init_s)
+            print(f"scene: {len(views_s)} views {W}x{H} written under "
+                  f"{root.name}/, init errors " + ", ".join(
+                      f"{t * 100:.2f} cm / {r:.3f} deg" for t, r in init_err))
+            common = ["--scene", str(root), "--preset", "seven_scenes"]
+
+            done = run_scene.main(common + ["--stage", "prepare"])
+            n_tr, n_te = (len(x) for x in done["prepare"])
+            check((n_tr, n_te) == (N_SCENE_TRAIN, N_SCENE_TEST),
+                  f"prepare reported {n_tr} / {n_te} images")
+
+            # the initial map's held-out PSNR and the K1/K2 check on its
+            # pack, at the runner's raster config
+            scene_s = load_seven_scenes_scene(str(root), device=dev)
+            rcfg_s = RasterizerConfig(max_pairs=1 << 21, max_per_tile=1024,
+                                      use_stream=True)
+            g_init = GaussianParams.from_pcd(
+                pts, cols, sh_degree=3,
+                capacity=max(int(len(pts) * 4.0), 1024), device=dev)
+            with torch.no_grad():
+                psnr_init = float(np.mean([
+                    float(mlosses.psnr(
+                        rasterize(g_init, c.camera, rcfg_s).color,
+                        torch.tensor(load_image(c.image_path), device=dev)))
+                    for c in scene_s.test_cameras]))
+            err_s1, err_s2 = scene_pack_check(
+                "scene-train", g_init,
+                scene_s.train_cameras[0].camera, rcfg_s, grid_x, seed=9)
+            err_k1, err_k2 = max(err_k1, err_s1), max(err_k2, err_s2)
+
+            tee = Tee(sys.stdout)
+            torch.cuda.synchronize()
+            gsl.reset_launches()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            with contextlib.redirect_stdout(tee):
+                done = run_scene.main(common + [
+                    "--stage", "train", "--iterations", str(SCENE_ITERS)])
+            ev1.record()
+            ev1.synchronize()
+            launches_scene_train = dict(gsl.LAUNCHES)
+            ms_step_s = ev0.elapsed_time(ev1) / SCENE_ITERS
+            log_s = tee.text()
+            psnrs = [float(x) for x in re.findall(
+                r"\[\d+\] test PSNR ([\d.]+)", log_s)]
+            grow_s = [ln for ln in log_s.splitlines()
+                      if "binning overflow" in ln]
+            trained_s = done["train"]
+            print(f"scene train: {SCENE_ITERS} steps, {ms_step_s:.3f} ms/step "
+                  f"(CUDA events around the train stage: scene and image "
+                  f"loading, held-out PSNR and the PLY save included); "
+                  f"held-out PSNR initial map {psnr_init:.3f} dB -> logged "
+                  f"{psnrs}; live {int(trained_s.num_live)}; "
+                  f"{len(grow_s)} binning overflow lines")
+            print(f"scene train launches: {launches_scene_train}")
+            n_held = min(8, N_SCENE_TEST)
+            check(launches_scene_train["stream_bwd"] == SCENE_ITERS
+                  and launches_scene_train["stream_fwd"]
+                  == SCENE_ITERS + n_held
+                  and launches_scene_train["pregathered_fwd"] == 0
+                  and launches_scene_train["pregathered_bwd"] == 0,
+                  f"scene training launches {launches_scene_train} != "
+                  f"{SCENE_ITERS} steps + {n_held} held-out renders on K1/K2")
+            check(len(psnrs) == 1 and psnrs[-1] > psnr_init,
+                  f"held-out PSNR {psnrs} not above the initial map's "
+                  f"{psnr_init:.3f}")
+            ply_s = (root / "output_tpu" / "gs_map" /
+                     f"iteration_{SCENE_ITERS}" / "point_cloud.ply")
+            back_s = load_map(str(ply_s), device=dev)
+            check(back_s.capacity == int(trained_s.num_live),
+                  "the scene's PLY does not reload")
+
+            torch.cuda.synchronize()
+            gsl.reset_launches()
+            ev0.record()
+            done = run_scene.main(common + [
+                "--stage", "localize", "--iterations", str(SCENE_ITERS)])
+            ev1.record()
+            ev1.synchronize()
+            launches_scene_loc = dict(gsl.LAUNCHES)
+            n_loc = launches_scene_loc["stream_bwd"]
+            ms_loc_s = ev0.elapsed_time(ev1) / max(n_loc, 1)
+            print(f"scene localize launches: {launches_scene_loc}; "
+                  f"{ms_loc_s:.3f} ms per refinement iteration (CUDA events "
+                  f"around the localize stage, map and image loading "
+                  f"included, over its {n_loc} iterations)")
+            check(n_loc > 0 and launches_scene_loc["stream_fwd"] == n_loc
+                  and launches_scene_loc["pregathered_fwd"] == 0
+                  and launches_scene_loc["pregathered_bwd"] == 0,
+                  f"scene localize launches {launches_scene_loc}")
+            poses_s = read_pose_results(str(out_s / "results.txt"))
+            check(sorted(poses_s) == sorted(test_names),
+                  f"results.txt holds {sorted(poses_s)}")
+            check((out_s / "metrics.json").exists(), "no metrics.json")
+            metrics_s = json.loads((out_s / "metrics.json").read_text())
+            fin_err = []
+            for name in test_names:
+                q, t = poses_s[name]
+                check(np.isfinite(q).all() and np.isfinite(t).all(),
+                      f"{name}: non-finite pose")
+                gt_w = true_w2c[name]
+                R = quat_to_rotmat(torch.tensor(q)).numpy()
+                fin_err.append(pose_errors(R, t, gt_w[:3, :3], gt_w[:3, 3]))
+            med0 = np.median(np.array(init_err), axis=0)
+            med1 = np.median(np.array(fin_err), axis=0)
+            print(f"scene localize: median error {med0[0] * 100:.3f} cm / "
+                  f"{med0[1]:.4f} deg -> {med1[0] * 100:.3f} cm / "
+                  f"{med1[1]:.4f} deg; metrics.json {metrics_s}")
+            check(med1[0] < med0[0] and med1[1] < med0[1],
+                  "the median refined error is not below the initial one")
+
+            # ms per training step, stream vs pregathered, on the same
+            # initial state and view set (the scene's runner configs; the
+            # pregathered cap from a probe of this map)
+            mcfg_s = mtrain.MapTrainConfig(spatial_scale=scene_s.extent,
+                                           lambda_gt_depth=0.05,
+                                           lambda_pseudo_depth=0.01)
+            sviews = []
+            for c in scene_s.train_cameras:
+                sviews.append((c.camera, torch.tensor(
+                    load_image(c.image_path), device=dev), torch.tensor(
+                    load_depth(c.depth_path), device=dev)))
+            pre_cfg_s, mtc_s, _, _ = probe_training(
+                g_init, [c for c, _, _ in sviews])
+            s0 = mtrain.init_training(g_init, mcfg_s)
+
+            def steps_on(rc, n=10):
+                st = s0
+                for k in range(n):
+                    c, im, dp = sviews[k % len(sviews)]
+                    st, _ = mtrain.train_step(st, c, im, mcfg_s, rc,
+                                              gt_depth=dp)
+                return st
+
+            step_stream = time_ms(lambda: steps_on(rcfg_s), 5) / 10
+            step_pre = time_ms(lambda: steps_on(pre_cfg_s), 5) / 10
+            # the stream gather's adjoint as advanced indexing gives it
+            # (sorted positions, each Gaussian's duplicates walked serially;
+            # this PR's first form) instead of index_select's index_add_
+            new_assemble = sb.assemble_stream
+
+            def indexed_assemble(pack, gid_of_pos, chunk):
+                pad = torch.cat([pack, pack.new_zeros((1, pack.shape[1]))])
+                st = pad[gid_of_pos.long()].T
+                st = torch.cat([st, st.new_zeros((16 - st.shape[0],
+                                                  st.shape[1]))])
+                return torch.cat([st, st.new_zeros((16, chunk))], dim=1)
+
+            sb.assemble_stream = indexed_assemble
+            try:
+                step_indexed = time_ms(lambda: steps_on(rcfg_s, 3), 3) / 3
+            finally:
+                sb.assemble_stream = new_assemble
+            print(f"scene train_step from the initial map: stream layout "
+                  f"{step_stream:.3f} ms/step, pregathered (max_per_tile "
+                  f"{pre_cfg_s.max_per_tile}, probed max count {mtc_s}) "
+                  f"{step_pre:.3f} ms/step (median of 5 runs of 10 steps); "
+                  f"stream with the advanced-indexing gather adjoint "
+                  f"{step_indexed:.3f} ms/step (median of 3 runs of 3)")
+            profile("train stream", lambda: steps_on(rcfg_s, 20), 20)
+        finally:
+            shutil.rmtree(scene_dir, ignore_errors=True)
+
     # ---- timing at the bench shapes -----------------------------------------
     with phase("timing"):
         clocks = "clocks.sm,clocks.max.sm"
@@ -1278,14 +1619,21 @@ def main() -> None:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None}
 
+    # K1/K2 run on two paths: localization, and the scene runner's stream
+    # training and localization (each counted from 0 over its own run)
+    k12_launches = {k: launches_loc[k] + launches_scene_train[k]
+                    + launches_scene_loc[k]
+                    for k in ("stream_fwd", "stream_bwd")}
+    print(f"K1/K2 launches: localization {launches_loc}, scene runner "
+          f"train {launches_scene_train}, localize {launches_scene_loc}")
     kernels = [
         entry("stream_fwd", "stream_blend.cu",
               "gs_localization_tpu/raster/stream_blend.py:85",
-              launches_loc["stream_fwd"], err_k1, tk["K1"], k1p_ms,
+              k12_launches["stream_fwd"], err_k1, tk["K1"], k1p_ms,
               work12["fwd_bytes"], work12["fwd_ops_s"]),
         entry("stream_bwd", "stream_blend.cu",
               "gs_localization_tpu/raster/stream_blend.py:161",
-              launches_loc["stream_bwd"], err_k2, tk["K2"], k2p_ms,
+              k12_launches["stream_bwd"], err_k2, tk["K2"], k2p_ms,
               work12["bwd_bytes"], work12["bwd_ops_s"]),
         entry("pregathered_fwd", "pallas_blend.cu",
               "gs_localization_tpu/raster/pallas_blend.py:82",

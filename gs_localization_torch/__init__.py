@@ -35,6 +35,24 @@ LAUNCHES: Dict[str, int] = {"stream_fwd": 0, "stream_bwd": 0,
                             "pregathered_fwd": 0, "pregathered_bwd": 0}
 
 
+def _init_cpu_vector_math() -> None:
+    """Initialise MKL's vector math on one thread.
+
+    On the CPU, ``torch.exp``/``torch.log`` of float32 tensors run MKL's
+    vector math library, which initialises itself at its first call. When
+    that first call is large enough for ATen to split it over its thread
+    pool, the threads race through the initialisation, and in about one
+    process in six one thread's share comes out with a relative error of
+    ~1.5e-4 instead of ~1 ulp; every later call is exact. The plain kernel
+    versions then lie off the JAX kernels by more than their tolerance in
+    that process only. A call below ATen's parallel grain runs on the
+    calling thread and initialises the library before any large call."""
+    torch.exp(torch.zeros(8))
+
+
+_init_cpu_vector_math()
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0

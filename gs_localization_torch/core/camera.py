@@ -14,6 +14,7 @@ static image size; ``replace`` returns a modified copy.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -61,6 +62,45 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def rotmat_to_quat(R) -> np.ndarray:
+    """3x3 rotation -> wxyz unit quaternion (float64 numpy, host-side),
+    with the same branch choice as the JAX package and w >= 0."""
+    m = np.asarray(R, dtype=np.float64)
+    tr = np.trace(m)
+    if tr > 0:
+        s = math.sqrt(tr + 1.0) * 2
+        q = np.array(
+            [0.25 * s, (m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s,
+             (m[1, 0] - m[0, 1]) / s])
+    elif m[0, 0] > m[1, 1] and m[0, 0] > m[2, 2]:
+        s = math.sqrt(1.0 + m[0, 0] - m[1, 1] - m[2, 2]) * 2
+        q = np.array(
+            [(m[2, 1] - m[1, 2]) / s, 0.25 * s, (m[0, 1] + m[1, 0]) / s,
+             (m[0, 2] + m[2, 0]) / s])
+    elif m[1, 1] > m[2, 2]:
+        s = math.sqrt(1.0 + m[1, 1] - m[0, 0] - m[2, 2]) * 2
+        q = np.array(
+            [(m[0, 2] - m[2, 0]) / s, (m[0, 1] + m[1, 0]) / s, 0.25 * s,
+             (m[1, 2] + m[2, 1]) / s])
+    else:
+        s = math.sqrt(1.0 + m[2, 2] - m[0, 0] - m[1, 1]) * 2
+        q = np.array(
+            [(m[1, 0] - m[0, 1]) / s, (m[0, 2] + m[2, 0]) / s,
+             (m[1, 2] + m[2, 1]) / s, 0.25 * s])
+    q = q / np.linalg.norm(q)
+    if q[0] < 0:
+        q = -q
+    return q.astype(np.float64)
+
+
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
 
 
 def projection_matrix(fx, fy, cx, cy, width: int, height: int,
@@ -114,6 +154,12 @@ class Camera:
             width=int(width), height=int(height), **kw)
 
     @classmethod
+    def from_fov(cls, R_c2w, t, fovx: float, fovy: float, width: int,
+                 height: int, **kw) -> "Camera":
+        return cls.from_rt(R_c2w, t, fov2focal(fovx, width),
+                           fov2focal(fovy, height), width, height, **kw)
+
+    @classmethod
     def from_numpy(cls, w2c, fx, fy, cx, cy, width: int, height: int,
                    znear: float = 0.01, zfar: float = 100.0,
                    device="cuda") -> "Camera":
@@ -165,3 +211,9 @@ class Camera:
     def with_delta(self, tau: torch.Tensor) -> "Camera":
         """Apply an SE(3) tangent delta: w2c' = exp(tau) @ w2c (differentiable)."""
         return self.replace(w2c=se3.apply_delta(tau, self.w2c))
+
+    def with_pose(self, R_c2w, t) -> "Camera":
+        """The same intrinsics at a new pose (R camera-to-world, t
+        world-to-camera), on this camera's device."""
+        return self.replace(w2c=w2c_from_rt(_f32(R_c2w, self.device),
+                                            _f32(t, self.device)))

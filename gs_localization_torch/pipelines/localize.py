@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.camera import Camera
+from ..core.camera import Camera, w2c_from_quat_t
 from ..core.gaussians import GaussianParams
 from ..data.ply import load_gaussian_ply
 from ..loc import TrackingConfig, refine_poses_batch
@@ -140,3 +140,19 @@ def load_map(path: str, capacity: Optional[int] = None,
              device="cuda") -> GaussianParams:
     """Load a trained map PLY onto ``device``."""
     return load_gaussian_ply(path, capacity=capacity, device=device)
+
+
+def init_camera_from_results(name: str, results_path_poses: Dict[str, tuple],
+                             fx, fy, cx, cy, width: int, height: int,
+                             device="cuda") -> Camera:
+    """The camera of query ``name`` at its pose in a results file's poses
+    (``sfm.io.read_pose_results``), on ``device``."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    q, t = results_path_poses[name]
+    return Camera(w2c=w2c_from_quat_t(f32(q), f32(t)), fx=f32(fx),
+                  fy=f32(fy), cx=f32(cx), cy=f32(cy), width=int(width),
+                  height=int(height))

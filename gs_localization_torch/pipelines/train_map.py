@@ -77,6 +77,14 @@ class TrainPipelineConfig:
     max_screen_size: float = 20.0
     log_every: int = 500
     seed: int = 0
+    # few-shot pseudo-view regularization: generated when < fewshot_threshold
+    # train views and a depth estimator is given (not ported yet: train_map
+    # raises on a depth_estimator); the runner rescales the window
+    fewshot_threshold: int = 200
+    sample_pseudo_interval: int = 20
+    start_sample_pseudo: int = 2_000
+    end_sample_pseudo: int = 29_000
+    pseudo_per_edge: int = 3
     # "too large" scenes: cap the working camera set and swap to a fresh
     # subset once mid-run
     max_cameras: Optional[int] = None

@@ -107,6 +107,18 @@ def compute_bins(gaussians: GaussianParams, camera: Camera,
         return bins_for(prep, camera, config)
 
 
+def stream_pack(prep, means2d: torch.Tensor) -> torch.Tensor:
+    """The (P, 12) per-Gaussian rows the stream blend gathers: x, y, conic
+    a b c, opacity, valid, pad, rgb, depth."""
+    return torch.stack(
+        [means2d[:, 0], means2d[:, 1],
+         prep.conic[:, 0], prep.conic[:, 1], prep.conic[:, 2],
+         prep.opacity, prep.valid.to(torch.float32),
+         torch.zeros_like(prep.opacity),
+         prep.rgb[:, 0], prep.rgb[:, 1], prep.rgb[:, 2], prep.depths],
+        dim=1)
+
+
 def composite(out: blend_lib.TileBlendOut, camera: Camera, tile_size: int,
               bg: Optional[torch.Tensor]):
     """Tile blend output + background -> (color, depth, alpha) images."""
@@ -139,9 +151,13 @@ def rasterize(
     """Render: (P,12) pack -> stream -> K1/K2 for ``StreamBins``, or
     ``pack[tile_gid]`` -> K3/K4 for a ``Binning``. Without ``bins`` the
     config's layout is binned here; ``StreamBins`` passed with
-    ``use_stream=False`` are re-binned (as in the JAX package)."""
+    ``use_stream=False`` are re-binned (as in the JAX package).
+
+    ``return_n_touched`` adds the per-Gaussian contributed-pixel counts
+    (``blend.count_touched``), an extra pass over the (T, max_per_tile) id
+    matrix: it takes the pregathered layout, as in the JAX package."""
     if return_n_touched:
-        raise NotImplementedError("return_n_touched is not ported yet")
+        config = config.replace(use_stream=False)
     ts = config.tile_size
     grid_x = -(-camera.width // ts)
     grid_y = -(-camera.height // ts)
@@ -157,14 +173,8 @@ def rasterize(
             bins = bins_for(prep, camera, config)
 
     if isinstance(bins, binning_lib.StreamBins):
-        pack = torch.stack(
-            [means2d[:, 0], means2d[:, 1],
-             prep.conic[:, 0], prep.conic[:, 1], prep.conic[:, 2],
-             prep.opacity, prep.valid.to(torch.float32),
-             torch.zeros_like(prep.opacity),
-             prep.rgb[:, 0], prep.rgb[:, 1], prep.rgb[:, 2], prep.depths],
-            dim=1)                                        # (P, 12)
-        out = stream_blend.blend_stream(pack, bins, grid_x, ts,
+        out = stream_blend.blend_stream(stream_pack(prep, means2d), bins,
+                                        grid_x, ts,
                                         chunk=config.pallas_chunk)
     else:
         out = pallas_blend.blend_tiles_pallas(
@@ -172,6 +182,11 @@ def rasterize(
             prep.opacity, prep.depths, grid_x, grid_y, ts,
             chunk=config.pallas_chunk)
     color, depth, alpha = composite(out, camera, ts, bg)
+    n_touched = None
+    if return_n_touched:
+        n_touched = blend_lib.count_touched(
+            bins.tile_gid, bins.tile_mask, means2d, prep.conic, prep.opacity,
+            gaussians.xyz.shape[0], grid_x, grid_y, ts, chunk=config.chunk)
     return RenderOutput(
         color=color,
         depth=depth,
@@ -181,6 +196,7 @@ def rasterize(
         num_rendered=bins.num_rendered,
         overflow=bins.overflow,
         tile_overflow=bins.tile_overflow,
+        n_touched=n_touched,
         max_tile_count=bins.max_tile_count,
     )
 
@@ -196,7 +212,7 @@ def render(
     """Reference-style render dict."""
     out = rasterize(gaussians, camera, config, bg, means2d_offset,
                     return_n_touched=return_n_touched)
-    return {
+    d = {
         "render": out.color,
         "depth": out.depth,
         "alpha": out.alpha,
@@ -206,3 +222,6 @@ def render(
         "overflow": out.overflow,
         "tile_overflow": out.tile_overflow,
     }
+    if return_n_touched:
+        d["n_touched"] = out.n_touched
+    return d

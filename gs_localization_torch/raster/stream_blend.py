@@ -450,12 +450,19 @@ def blend_stream_direct(
 def assemble_stream(pack: torch.Tensor, gid_of_pos: torch.Tensor,
                     chunk: int) -> torch.Tensor:
     """(P, R) per-Gaussian rows, R <= 16 -> (16, MR_AL+chunk) stream, rows
-    R.. zero; the dead row P (zero params) is gated out of the blend."""
+    R.. zero; the dead row P (zero params) is gated out of the blend.
+
+    The gather is an ``index_select``, whose adjoint is ``index_add_``
+    (atomic adds on the card, so the sums' order varies between runs).
+    Advanced indexing's adjoint would sort the positions and walk each
+    Gaussian's duplicates serially: every alignment gap points at the dead
+    row, hundreds of thousands of duplicates of one index in a training
+    view, which made that adjoint most of a training step on the card."""
     rows = pack.shape[1]
     if rows > _RPAD:
         raise ValueError(f"pack has {rows} rows, the stream holds {_RPAD}")
     pack_pad = torch.cat([pack, pack.new_zeros((1, rows))], dim=0)
-    stream = pack_pad[gid_of_pos.long()]                  # (MR_AL, R)
+    stream = torch.index_select(pack_pad, 0, gid_of_pos)  # (MR_AL, R)
     mr_al = stream.shape[0]
     stream_t = torch.cat([stream.T, pack.new_zeros((_RPAD - rows, mr_al))],
                          dim=0)
@@ -470,8 +477,9 @@ def blend_stream(
     chunk: int = 256,
 ) -> TileBlendOut:
     """Counterpart of the JAX ``blend_stream_pallas``. Gradients reach
-    ``pack`` through PyTorch's adjoint of the gather in ``assemble_stream``
-    (the JAX slot-order reduction is a TPU device against scatters)."""
+    ``pack`` through the adjoint of the gather in ``assemble_stream``
+    (``index_add_``): the same function as the JAX slot-order reduction,
+    which is a TPU device against scatters."""
     if sbins.align != chunk:
         raise ValueError(f"stream aligned to {sbins.align}, blend chunk "
                          f"{chunk}: the backward needs align == chunk")

@@ -431,8 +431,13 @@ def test_pregathered_cuda_path_matches_cpu_path(case):
                                    rtol=1e-2, msg=name)
 
 
-def test_train_step_cuda_matches_cpu(case):
-    cfg = case["pre"]
+@pytest.mark.parametrize("layout", ["pregathered", "stream"])
+def test_train_step_cuda_matches_cpu(case, layout):
+    """One train_step on the card and on the CPU, on the pregathered
+    layout (K3/K4) and on the stream layout (K1/K2 and the gather's
+    ``index_add_`` adjoint, whose atomic sums vary in order: tolerances,
+    not bits)."""
+    cfg = case["pre"] if layout == "pregathered" else case["cfg"]
     tau = torch.tensor([0.01, -0.008, 0.012, 0.02, -0.015, 0.01])
     res = []
     for dev in (case["device"], torch.device("cpu")):
@@ -440,9 +445,13 @@ def test_train_step_cuda_matches_cpu(case):
         with torch.no_grad():
             gt = rasterize(g, cam.with_delta(tau.to(dev)), cfg)
         state = mtrain.init_training(g, mtrain.MapTrainConfig())
+        gsl.reset_launches()
         state, aux = mtrain.train_step(state, cam, gt.color,
                                        mtrain.MapTrainConfig(), cfg,
                                        gt_depth=gt.depth)
+        if dev.type == "cuda":
+            k = "stream" if layout == "stream" else "pregathered"
+            assert gsl.LAUNCHES[f"{k}_fwd"] == gsl.LAUNCHES[f"{k}_bwd"] == 1
         res.append((float(aux["total"]), state))
     (l_k, s_k), (l_p, s_p) = res
     assert l_k == pytest.approx(l_p, rel=1e-5)
@@ -453,3 +462,32 @@ def test_train_step_cuda_matches_cpu(case):
         torch.testing.assert_close(mu_k / scale, mu_p / scale, atol=5e-3,
                                    rtol=1e-2, msg=name)
     torch.testing.assert_close(s_k.densify.denom.cpu(), s_p.densify.denom)
+
+
+def test_oracle_and_n_touched_cuda_match_cpu(case):
+    """render_oracle and rasterize(return_n_touched=True) on the card
+    against the CPU. Both are plain PyTorch on either device (no hand
+    kernel: the JAX functions are ``lax.scan``s): images to 1e-5; the
+    touched-pixel counts equal but for Gaussians whose alpha or T test
+    sits within the card's and the CPU's ``exp`` rounding of its threshold
+    (at most 1 in 1,000 Gaussians, by at most 2 pixels)."""
+    from gs_localization_torch.raster.oracle import render_oracle
+
+    cfg = case["pre"].replace(chunk=32)
+    outs = []
+    for dev in (case["device"], torch.device("cpu")):
+        g, cam = _on(case["arrays"], dev)
+        with torch.no_grad():
+            o = render_oracle(g, cam, bg=torch.tensor([0.2, 0.1, 0.3],
+                                                      device=dev))
+            r = rasterize(g, cam, cfg, return_n_touched=True)
+        outs.append(([x.cpu() for x in o], r.n_touched.cpu(),
+                     r.color.cpu()))
+    (o_k, n_k, c_k), (o_p, n_p, c_p) = outs
+    for x_k, x_p in zip(o_k, o_p):
+        torch.testing.assert_close(x_k, x_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(c_k, c_p, atol=1e-5, rtol=0)
+    assert n_k.dtype == torch.int32 and int(n_p.max()) > 0
+    d = (n_k.long() - n_p.long()).abs()
+    assert int(d.max()) <= 2 and int((d > 0).sum()) <= max(
+        1, n_p.numel() // 1000)

@@ -46,7 +46,10 @@ def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"stream_blend.py", "refine.py", "localize.py", "pallas_blend.py",
             "train.py", "densify.py", "train_map.py", "knn.py", "ssim.py",
-            "scene.py", "chip_smoke.py"} <= names
+            "scene.py", "chip_smoke.py", "run_scene.py", "presets.py",
+            "colmap.py", "seven_scenes.py", "prepare.py", "io.py",
+            "oracle.py", "checkpoint.py", "lpips.py",
+            "render_eval.py"} <= names
 
 
 def test_imports_without_nvcc_or_triton(tmp_path):
@@ -129,3 +132,30 @@ def test_reset_launches():
     gsl.reset_launches()
     assert gsl.LAUNCHES == {"stream_fwd": 0, "stream_bwd": 0,
                             "pregathered_fwd": 0, "pregathered_bwd": 0}
+
+
+def test_scene_entry_points_default_to_cuda(no_cuda, tmp_path):
+    """The data layer, LPIPS and the scene runner take the card unless
+    asked for the CPU."""
+    from gs_localization_torch.data.colmap import (
+        ColmapCamera, ColmapImage, write_colmap_model_text)
+    from gs_localization_torch.data.scene import (camera_from_colmap,
+                                                  load_colmap_scene)
+    from gs_localization_torch.ops.lpips import LPIPS
+    from gs_localization_torch.pipelines import run_scene
+
+    cam = ColmapCamera(1, "PINHOLE", 8, 6, np.array([5.0, 5.0, 4.0, 3.0]))
+    im = ColmapImage(1, np.array([1.0, 0, 0, 0]), np.zeros(3), 1, "a.png",
+                     np.zeros((0, 2)), np.zeros((0,), np.int64))
+    write_colmap_model_text(str(tmp_path), {1: cam}, {1: im}, {})
+    for call in (lambda: camera_from_colmap(cam, im),
+                 lambda: load_colmap_scene(str(tmp_path)),
+                 lambda: LPIPS([], [], []),
+                 lambda: run_scene.parse_args(["--scene", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    scene = load_colmap_scene(str(tmp_path), device="cpu")
+    assert scene.train_cameras[0].camera.device.type == "cpu"
+    args = run_scene.parse_args(["--scene", str(tmp_path), "--device",
+                                 "cpu"])
+    assert args.device.type == "cpu" and args.stream and args.use_depth

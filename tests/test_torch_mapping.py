@@ -5,7 +5,10 @@ training state carried over from JAX.
 
 The JAX side trains on its CPU default (``backend="jnp"``: the legacy
 per-tile id matrix and its plain blend); the port trains on the same
-``bin_gaussians`` lists through the plain versions of K3/K4.
+``bin_gaussians`` lists through the plain versions of K3/K4. One train
+step is also held on the stream layout, the scene runner's default: JAX's
+Pallas stream kernels in interpret mode with the slot-order reduction
+against the port's plain K1/K2 with the gather's adjoint.
 """
 
 import numpy as np
@@ -38,6 +41,11 @@ J_CFG = JConfig(max_pairs=1 << 12, max_per_tile=128, chunk=32, backend="jnp",
                 use_stream=False)
 CFG = RasterizerConfig(max_pairs=1 << 12, max_per_tile=128, pallas_chunk=32,
                        use_stream=False)
+# the stream layout (K1/K2): JAX's Pallas kernels in interpret mode
+J_STREAM = JConfig(max_pairs=1 << 12, max_render=1 << 12, pallas_chunk=32,
+                   backend="pallas_interpret", use_stream=True)
+STREAM = RasterizerConfig(max_pairs=1 << 12, max_render=1 << 12,
+                          pallas_chunk=32, use_stream=True)
 TRAINABLE = ttrain.TRAINABLE
 
 
@@ -224,14 +232,16 @@ def _grads(m1, m0):
                 - 0.9 * m0[f"mu/{n}"]) / 0.1 for n in TRAINABLE}
 
 
-def test_train_step_one_step_matches_jax(training):
+@pytest.mark.parametrize("use_stream", [False, True])
+def test_train_step_one_step_matches_jax(training, use_stream):
     js, cam = training["state"], training["cam"]
     ts = _carry(js)
     assert ts.step == 2 and int(ts.opt_state["xyz"].count) == 2
+    j_cfg, t_cfg = (J_STREAM, STREAM) if use_stream else (J_CFG, CFG)
     js1, aj = jtrain.train_step(js, cam, training["gt"], training["mcfg"],
-                                J_CFG)
+                                j_cfg)
     ts1, at = ttrain.train_step(ts, camera_to_torch(cam),
-                                _t(training["gt"]), training["tcfg"], CFG)
+                                _t(training["gt"]), training["tcfg"], t_cfg)
     np.testing.assert_allclose(float(at["total"]), float(aj["total"]),
                                rtol=1e-5)
     for k in ("num_rendered", "overflow", "tile_overflow", "max_tile_count"):
