@@ -63,7 +63,23 @@
    median error falls); before training, K1/K2 through ``blend_stream``
    on the initial map's pack at its first training view against the plain
    versions (``[scene-train] K1/K2 vs plain``); ms per training step on
-   both layouts from that map, and ms per localization iteration.
+   both layouts from that map, and ms per localization iteration;
+12. n_touched: ``count_touched`` on the card against the CPU at the card
+   test's two scenes and the bench scene, and for each Gaussian whose
+   count differs the deciding value of each differing pixel decision and
+   its margin from the threshold it crossed, in float32 ULPs;
+13. few-shot training: ``train_map`` for 300 iterations on the stream
+   layout (K1/K2) with a depth estimator (1 / (0.1 + luminance)) on the
+   training scene of step 7: 21 pseudo cameras, a pseudo view every 20
+   iterations inside (10, 290); the estimator's calls, the exact K1/K2
+   launch counts (K1 = iterations + 2 x pseudo steps + held-out renders,
+   K2 = iterations + pseudo steps, K3/K4 none), finite pseudo-view losses
+   and the held-out PSNR above the initial map's; ms per step with and
+   without a pseudo view; one pseudo-term ``train_step`` on the card
+   against the CPU (small scene, both layouts); ``train_step_batched`` of
+   4 training views against the mean single-view gradient; one viewer
+   frame (a JPEG, rendered by K1); and whether the native image loader
+   built, with its decodes against PIL.
 
 Prints one JSON line of kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -73,6 +89,7 @@ line. Exits non-zero at once when there is no CUDA device.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import re
 import shutil
@@ -81,6 +98,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -99,6 +117,9 @@ N_PAIR_QUERIES = 2
 # the scene runner's 7-Scenes layout: frames of seq-01 train, of seq-02 test
 N_SCENE_TRAIN, N_SCENE_TEST = 8, 4
 SCENE_ITERS = 300
+# few-shot training: a pseudo view every FS_INTERVAL iterations strictly
+# inside FS_WINDOW, 14 of the N_TRAIN iterations
+FS_INTERVAL, FS_WINDOW = 20, (10, 290)
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_FP32 = 67e12     # FLOP/s on the CUDA cores, a fused multiply-add as 2
@@ -910,6 +931,151 @@ def localize_checked(label, g, queries, init, gt_w2c, pcfg, cfg):
     return launches, ms, logs
 
 
+def touched_case(seed: int, n: int, spread: float, device):
+    """The scenes of ``tests/test_torch_cuda.py``'s n_touched test (its
+    ``_scene`` draws at SH degree 2) and its 96x64 camera."""
+    from gs_localization_torch.core import sh as sh_lib
+    from gs_localization_torch.core.camera import Camera
+    from gs_localization_torch.core.gaussians import GaussianParams
+
+    rng = np.random.default_rng(seed)
+    k = sh_lib.num_sh_coeffs(2)
+    xyz = np.stack([rng.uniform(-spread, spread, n),
+                    rng.uniform(-spread, spread, n),
+                    rng.uniform(2.0, 6.0, n)], 1)
+    fdc = sh_lib.rgb_to_sh_dc(rng.uniform(0.05, 0.95, (n, 3)))[:, None, :]
+    frest = 0.1 * rng.standard_normal((n, k - 1, 3))
+    scaling = rng.uniform(-3.5, -2.0, (n, 3))
+    rot = rng.standard_normal((n, 4))
+    rot /= np.linalg.norm(rot, axis=1, keepdims=True)
+    arrays = {"xyz": xyz, "features_dc": fdc, "features_rest": frest,
+              "scaling": scaling, "rotation": rot,
+              "opacity": rng.uniform(-1.0, 3.0, (n, 1)),
+              "live": np.ones(n, bool)}
+    fx = 96 / (2.0 * np.tan(0.5))
+    return (GaussianParams.from_numpy(arrays, 2, 2, device=device),
+            Camera.from_rt(np.eye(3), np.zeros(3), fx, fx, 96, 64,
+                           device=device))
+
+
+def f32_ulps(a, b) -> int:
+    """Distance between two float32 values in units in the last place (the
+    count of float32 values between them)."""
+    def ordered(x):
+        i = int(np.array(x, np.float32).view(np.int32))
+        return i if i >= 0 else -(i & 0x7FFFFFFF)
+
+    return abs(ordered(a) - ordered(b))
+
+
+def touched_walk(prep, bins, grid_x: int, grid_y: int, chunk: int):
+    """``blend.count_touched``'s walk written out again with the same ops
+    at the same shapes, so that each pixel decision's deciding value can be
+    read: yields per chunk (gid, mask, power, alpha before its gate,
+    inclusive log T, hit), each (T, chunk[, npix])."""
+    import torch
+    from gs_localization_torch.raster.blend import tile_pixel_coords
+    from gs_localization_torch.raster.constants import (
+        ALPHA_MAX, ALPHA_MIN, LOG_T_EPS)
+
+    num_tiles, max_per_tile = bins.tile_gid.shape
+    pix = tile_pixel_coords(grid_x, grid_y, 16, prep.means2d.device)[:, None]
+    log_t_full = torch.zeros((num_tiles, 256), dtype=torch.float32,
+                             device=prep.means2d.device)
+    for lo in range(0, max_per_tile, chunk):
+        gid = bins.tile_gid[:, lo:lo + chunk].long()
+        mask = bins.tile_mask[:, lo:lo + chunk]
+        opa = torch.where(mask, prep.opacity[gid],
+                          torch.zeros_like(prep.opacity[gid]))
+        xy, conic = prep.means2d[gid][:, :, None, :], prep.conic[gid][:, :, None, :]
+        dx, dy = xy[..., 0] - pix[..., 0], xy[..., 1] - pix[..., 1]
+        power = (-0.5 * (conic[..., 0] * dx * dx + conic[..., 2] * dy * dy)
+                 - conic[..., 1] * dx * dy)
+        raw = torch.clamp_max(opa[:, :, None] * torch.exp(
+            torch.clamp_max(power, 0.0)), ALPHA_MAX)
+        alpha = torch.where((power > 0.0) | (raw < ALPHA_MIN),
+                            torch.zeros_like(raw), raw)
+        la = torch.log1p(-alpha)
+        clog = log_t_full[:, None, :] + torch.cumsum(la, dim=1)
+        yield gid, mask, power, raw, clog, (alpha > 0.0) & (clog >= LOG_T_EPS)
+        log_t_full = log_t_full + la.sum(dim=1)
+
+
+def touched_margins(label, devices, cfg, max_rows: int = 12) -> None:
+    """``count_touched`` on the card and on the CPU; where counts differ,
+    ``touched_walk`` in lockstep on both (its counts held equal to
+    ``count_touched``'s) gives each differing pixel decision of those
+    Gaussians, its deciding value and that value's margin from the
+    threshold it crossed, in float32 ULPs: alpha against 1/255 (or power
+    against 0), else the inclusive log T against log(1e-4). ``devices``
+    holds (map, camera) on the card, then on the CPU."""
+    import torch
+    from gs_localization_torch.raster import blend
+    from gs_localization_torch.raster.constants import ALPHA_MIN, LOG_T_EPS
+    from gs_localization_torch.raster.preprocess import preprocess
+    from gs_localization_torch.raster.rasterize import bins_for
+
+    runs = []
+    for g_, c_ in devices:
+        with torch.no_grad():
+            prep = preprocess(g_, c_, tile_size=16)
+            bins = bins_for(prep, c_, cfg.replace(use_stream=False))
+        check(not bool(bins.tile_overflow), f"n_touched {label}: tile overflow")
+        grid = (-(-c_.width // 16), -(-c_.height // 16))
+        counts = blend.count_touched(
+            bins.tile_gid, bins.tile_mask, prep.means2d, prep.conic,
+            prep.opacity, g_.capacity, *grid, 16, cfg.chunk)
+        runs.append((prep, bins, grid, counts.cpu().long()))
+    (_, bins_k, _, cnt_k), (_, bins_p, _, cnt_p) = runs
+    same_bins = (torch.equal(bins_k.tile_gid.cpu(), bins_p.tile_gid)
+                 and torch.equal(bins_k.tile_mask.cpu(), bins_p.tile_mask))
+    d = (cnt_k - cnt_p).abs()
+    diff = set(torch.nonzero(d).flatten().tolist())
+    print(f"n_touched {label} card vs CPU: {len(diff)} of {len(d)} Gaussians "
+          f"differ (max |d| {int(d.max())} px; bins "
+          f"{'equal' if same_bins else 'DIFFER'})")
+    if not diff:
+        return
+    walked = [torch.zeros_like(cnt_p) for _ in range(2)]
+    entries = []
+    for ck, cp in zip(*(touched_walk(p_, b_, *gr, cfg.chunk)
+                        for p_, b_, gr, _ in runs)):
+        ck = [x.cpu() for x in ck]
+        for w, (gid, mask, _, _, _, hit) in zip(walked, (ck, cp)):
+            w.index_add_(0, gid.reshape(-1), (hit.sum(-1) * mask).reshape(-1))
+        gid, mask = cp[0], cp[1]
+        sel = (ck[5] != cp[5]) & mask[..., None]
+        for t, sl, px in sel.nonzero().tolist():
+            if int(gid[t, sl]) not in diff:
+                continue
+            (pk, ak, lk), (pp, ap, lp) = [
+                tuple(float(c[i][t, sl, px]) for i in (2, 3, 4))
+                for c in (ck, cp)]
+            gate_k = pk <= 0.0 and np.float32(ak) >= np.float32(ALPHA_MIN)
+            gate_p = pp <= 0.0 and np.float32(ap) >= np.float32(ALPHA_MIN)
+            if gate_k != gate_p and (pk > 0.0) != (pp > 0.0):
+                what, vk, vp, thr = "power vs 0", pk, pp, 0.0
+            elif gate_k != gate_p:
+                what, vk, vp, thr = "alpha vs 1/255", ak, ap, ALPHA_MIN
+            else:
+                what, vk, vp, thr = "log T vs log(1e-4)", lk, lp, LOG_T_EPS
+            entries.append((int(gid[t, sl]), t, sl, px, what, vk, vp,
+                            f32_ulps(vk, thr), f32_ulps(vp, thr),
+                            f32_ulps(vk, vp), bool(ck[5][t, sl, px])))
+    check(torch.equal(walked[0], cnt_k) and torch.equal(walked[1], cnt_p),
+          f"n_touched {label}: the walk does not count as count_touched")
+    margin = max([max(e[7], e[8]) for e in entries], default=0)
+    print(f"n_touched {label}: {len(entries)} pixel decisions differ on "
+          f"those Gaussians; largest margin from the threshold crossed "
+          f"{margin} float32 ULPs")
+    for gid_, t, sl, px, what, vk, vp, uk, up, apart, hit in \
+            entries[:max_rows]:
+        print(f"n_touched {label}:   gaussian {gid_} tile {t} slot {sl} "
+              f"pixel {px}: {what}: card {vk:.9g} ({uk} ULPs, "
+              f"{'hit' if hit else 'miss'}), CPU {vp:.9g} ({up} ULPs), "
+              f"{apart} ULPs apart")
+
+
 def main() -> None:
     import torch
 
@@ -1048,6 +1214,29 @@ def main() -> None:
                   f"CUDA path disagrees with the CPU path ({layout})")
             check(all(bool(torch.isfinite(x).all()) for x in (c1, d1, a1, t1)),
                   "non-finite render")
+
+    # ---- n_touched: the card's counts against the CPU's ---------------------
+    with phase("n_touched: card vs CPU"):
+        cpu = torch.device("cpu")
+        # the card test's two scenes and configs, then the bench scene
+        for label, (seed, n, spread, chunk, cap) in (
+                ("multi_chunk", (0, 500, 1.0, 32, 512)),
+                ("single_chunk", (4, 40, 0.5, 128, 128))):
+            c = RasterizerConfig(max_pairs=1 << 14, max_render=1 << 14,
+                                 fast_k=1, pallas_chunk=chunk,
+                                 max_per_tile=cap, chunk=32)
+            touched_margins(
+                label, [touched_case(seed, n, spread, d) for d in (dev, cpu)],
+                c)
+        g_cpu = g.replace(**{f: getattr(g, f).cpu()
+                             for f in TRAINABLE + ("live",)})
+        cam_cpu_b = cam.replace(w2c=cam.w2c.cpu(), fx=cam.fx.cpu(),
+                                fy=cam.fy.cpu(), cx=cam.cx.cpu(),
+                                cy=cam.cy.cpu())
+        touched_margins(
+            "bench", [(g, cam), (g_cpu, cam_cpu_b)],
+            cfg.replace(max_per_tile=round_up(mtc_bench, 64), chunk=64))
+        del g_cpu
 
     # ---- localization path: 4 perturbed queries, stream layout ------------
     with phase("localization (stream, K1/K2)"):
@@ -1272,6 +1461,201 @@ def main() -> None:
         err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
         del bins_f, geom_f, rgbd_f
 
+    # ---- few-shot training: pseudo views on the stream layout (K1/K2) -------
+    with phase("few-shot training (stream, K1/K2)"):
+        from gs_localization_torch.mapping.pseudo_views import (
+            generate_pseudo_poses)
+        from gs_localization_torch.utils.viewer import serve
+
+        stream_train = RasterizerConfig(
+            max_pairs=train_cfg.max_pairs,
+            max_render=round_up(1.5 * nrend, CHUNK), pallas_chunk=CHUNK)
+        pipe_fs = dataclasses.replace(
+            pipe, save_iterations=(), sample_pseudo_interval=FS_INTERVAL,
+            start_sample_pseudo=FS_WINDOW[0], end_sample_pseudo=FS_WINDOW[1],
+            pseudo_per_edge=3)
+        pseudo_its = [it for it in range(1, N_TRAIN + 1)
+                      if it % FS_INTERVAL == 0
+                      and FS_WINDOW[0] < it < FS_WINDOW[1]]
+        n_pseudo_cams = len(generate_pseudo_poses(
+            [i.camera for i in scene.train_cameras], n_per_edge=3))
+        est_calls, pv_losses, step_events, logs_fs = [], {}, {}, []
+
+        def prior(rgb):
+            """A deterministic monocular prior: 1 / (0.1 + luminance)."""
+            return 1.0 / (0.1 + rgb @ np.array([0.299, 0.587, 0.114],
+                                               np.float32))
+
+        def estimator(rgb):
+            check(rgb.shape == (H, W, 3), f"estimator got {rgb.shape}")
+            est_calls.append(1)
+            return prior(rgb)
+
+        def hook(it, aux):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            step_events[it] = ev
+            if "pseudo_view" in aux:
+                pv_losses[it] = aux["pseudo_view"]
+
+        torch.cuda.synchronize()
+        gsl.reset_launches()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        step_events[0] = ev0
+        trained_fs = train_map(
+            scene, None, pipe_fs, raster_cfg=stream_train,
+            image_loader=lambda info: (imgs[info.uid], deps[info.uid]),
+            depth_estimator=estimator, log_fn=logs_fs.append, device=dev,
+            step_hook=hook)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev1.record()
+        ev1.synchronize()
+        launches_fs = dict(gsl.LAUNCHES)
+        for line in logs_fs:
+            print(f"few-shot train_map: {line}")
+        step_ms = {it: step_events[it - 1].elapsed_time(step_events[it])
+                   for it in range(2, N_TRAIN + 1)}
+        ms_pseudo = statistics.median(step_ms[it] for it in pseudo_its)
+        ms_plain = statistics.median(ms for it, ms in step_ms.items()
+                                     if it not in pseudo_its)
+        n_test = len(scene.test_cameras[:8])
+        n_ps = len(pseudo_its)
+        print(f"few-shot: {n_pseudo_cams} pseudo cameras, pseudo steps at "
+              f"{pseudo_its} ({n_ps}), estimator called {len(est_calls)} "
+              f"times; {ev0.elapsed_time(ev1) / N_TRAIN:.3f} ms/step over "
+              f"{N_TRAIN} steps (CUDA events around train_map); median step "
+              f"{ms_plain:.3f} ms without a pseudo view, {ms_pseudo:.3f} ms "
+              f"with one (events at each step's end; nvidia-smi: {smi})")
+        print(f"few-shot launches: {launches_fs}")
+        check(n_pseudo_cams == 21 and "few-shot: generated 21 pseudo views"
+              in logs_fs, "few-shot: not 21 pseudo cameras")
+        check(len(est_calls) == n_ps and sorted(pv_losses) == pseudo_its,
+              f"few-shot: {len(est_calls)} estimator calls, pseudo terms at "
+              f"{sorted(pv_losses)}, schedule {pseudo_its}")
+        pv = torch.stack(list(pv_losses.values())).cpu().numpy()
+        print(f"few-shot: pseudo_view loss {pv.min():.5f} .. {pv.max():.5f}")
+        check(np.isfinite(pv).all(), "few-shot: non-finite pseudo_view")
+        check(launches_fs["stream_fwd"] == N_TRAIN + 2 * n_ps + n_test
+              and launches_fs["stream_bwd"] == N_TRAIN + n_ps
+              and launches_fs["pregathered_fwd"] == 0
+              and launches_fs["pregathered_bwd"] == 0,
+              f"few-shot launches {launches_fs} != K1 {N_TRAIN} + 2 x {n_ps} "
+              f"+ {n_test}, K2 {N_TRAIN} + {n_ps}")
+        psnr_fs = [float(x) for line in logs_fs
+                   for x in re.findall(r"test PSNR ([\d.]+)", line)]
+        print(f"few-shot held-out PSNR: initial map {psnr0:.3f} dB -> "
+              f"{psnr_fs}")
+        check(len(psnr_fs) == 1 and psnr_fs[0] > psnr0,
+              "few-shot: held-out PSNR not above the initial map's")
+        del trained_fs
+
+        # one train_step with the pseudo term, card vs CPU, small scene
+        gs_c = gs.replace(**{f: getattr(gs, f).cpu()
+                             for f in TRAINABLE + ("live",)})
+        cs_c = cam_s.replace(w2c=cam_s.w2c.cpu(), fx=cam_s.fx.cpu(),
+                             fy=cam_s.fy.cpu(), cx=cam_s.cx.cpu(),
+                             cy=cam_s.cy.cpu())
+        tau_t = torch.tensor([0.01, -0.008, 0.012, 0.02, -0.015, 0.01])
+        tau_p = torch.tensor([-0.03, 0.02, 0.01, 0.03, 0.02, -0.02])
+        for layout, c in (("stream", cfg_s), (
+                "pregathered", cfg_s.replace(use_stream=False,
+                                             max_per_tile=256))):
+            res = []
+            for gg, cc in ((gs, cam_s), (gs_c, cs_c)):
+                d_ = cc.device
+                with torch.no_grad():
+                    tgt = rasterize(gg, cc.with_delta(tau_t.to(d_)), c)
+                    pdep = torch.tensor(prior(rasterize(
+                        gg, cc.with_delta(tau_p.to(d_)), c).color.cpu()
+                        .numpy()), device=d_)
+                mc = mtrain.MapTrainConfig()
+                st = mtrain.init_training(gg, mc)
+                gsl.reset_launches()
+                st, aux = mtrain.train_step(
+                    st, cc, tgt.color, mc, c, gt_depth=tgt.depth,
+                    pseudo_camera=cc.with_delta(tau_p.to(d_)),
+                    pseudo_view_depth=pdep)
+                res.append((aux, st, dict(gsl.LAUNCHES)))
+            (a_k, s_k, l_k), (a_p, s_p, _) = res
+            k = "stream" if layout == "stream" else "pregathered"
+            check(l_k[f"{k}_fwd"] == 2 and l_k[f"{k}_bwd"] == 2,
+                  f"pseudo step ({layout}) launches {l_k}")
+            worst = 0.0
+            for name in TRAINABLE:
+                mu_k, mu_p = s_k.opt_state[name].mu.cpu(), \
+                    s_p.opt_state[name].mu
+                scale = max(float(mu_p.abs().max()), 1e-30)
+                worst = max(worst, close_err(mu_k / scale, mu_p / scale,
+                                             *TOL_BWD)[1])
+            l_err = max(abs(float(a_k[x]) - float(a_p[x])) / abs(float(a_p[x]))
+                        for x in ("total", "pseudo_view"))
+            print(f"pseudo step card vs CPU ({layout}): loss and pseudo_view "
+                  f"rel err {l_err:.2e} (tol 1e-5), gradients max normalized "
+                  f"{worst:.3f} (atol {TOL_BWD[0]} rtol {TOL_BWD[1]} of each "
+                  f"field's max), launches {l_k}")
+            check(l_err <= 1e-5 and worst <= 1,
+                  f"pseudo step ({layout}): card disagrees with the CPU")
+            check(torch.equal(s_k.densify.denom.cpu(), s_p.densify.denom),
+                  f"pseudo step ({layout}): densify stats")
+
+        # train_step_batched (B = 4 training views, full width) against the
+        # mean of the four single-view gradients
+        mc = mtrain.MapTrainConfig(spatial_scale=scene.extent)
+        s0 = mtrain.init_training(g0, mc)
+        bviews = scene.train_cameras[:4]
+        b_imgs = torch.tensor(np.stack([imgs[i.uid] for i in bviews]),
+                              device=dev)
+        b_deps = torch.tensor(np.stack([deps[i.uid] for i in bviews]),
+                              device=dev)
+        gsl.reset_launches()
+        sb_, aux_b = mtrain.train_step_batched(
+            s0, [i.camera for i in bviews], b_imgs, mc, stream_train,
+            gt_depths=b_deps)
+        l_b = dict(gsl.LAUNCHES)
+        singles = [mtrain.train_step(s0, i.camera, b_imgs[j], mc,
+                                     stream_train, gt_depth=b_deps[j])
+                   for j, i in enumerate(bviews)]
+        worst = 0.0
+        for name in TRAINABLE:
+            # from zero moments, mu after one step is 0.1 x the gradient
+            mean_mu = sum(s.opt_state[name].mu for s, _ in singles) / 4
+            scale = max(float(mean_mu.abs().max()), 1e-30)
+            worst = max(worst, close_err(sb_.opt_state[name].mu / scale,
+                                         mean_mu / scale, *TOL_BWD)[1])
+        vis_any = sum((s.densify.denom > 0).to(torch.int32)
+                      for s, _ in singles) > 0
+        total_mean = sum(float(a["total"]) for _, a in singles) / 4
+        t_err = abs(float(aux_b["total"]) - total_mean) / total_mean
+        print(f"train_step_batched (B 4, {W}x{H}, {g0.capacity} slots): "
+              f"total rel err {t_err:.2e} vs the single steps' mean (tol "
+              f"1e-5), gradients max normalized {worst:.3f} against the mean "
+              f"single-view gradient, launches {l_b}")
+        check(l_b["stream_fwd"] == 4 and l_b["stream_bwd"] == 4,
+              f"batched step launches {l_b}")
+        check(t_err <= 1e-5 and worst <= 1
+              and torch.equal(sb_.densify.denom > 0, vis_any),
+              "train_step_batched disagrees with the mean single-view step")
+        del sb_, singles, s0
+
+        # one viewer frame rendered on the card
+        httpd = serve(g, width=W, height=H, port=0, raster_cfg=cfg,
+                      block=False)
+        try:
+            gsl.reset_launches()
+            frame = urllib.request.urlopen(
+                f"http://127.0.0.1:{httpd.server_address[1]}/render?az=0&"
+                f"el=0&r=4", timeout=120).read()
+            launches_view = dict(gsl.LAUNCHES)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        is_jpeg = frame[:2] == b"\xff\xd8"
+        print(f"viewer: {len(frame)}-byte frame, JPEG {is_jpeg}, launches "
+              f"{launches_view}")
+        check(is_jpeg and launches_view["stream_fwd"] == 1,
+              "the viewer's frame is not a JPEG rendered through K1")
+
     # ---- pose mode's PairPack: 2 queries on the pregathered layout ----------
     with phase("localization (PairPack, K3/K4)"):
         cfg_pair = cfg.replace(use_stream=False,
@@ -1321,6 +1705,29 @@ def main() -> None:
             views_s = [cam] + [perturbed(cam, rng_s, 0.03, 0.1) for _ in
                                range(N_SCENE_TRAIN + N_SCENE_TEST - 1)]
             true_w2c = write_seven_scenes(root, g, views_s, cfg)
+            # the native decoder (opt-in; the runner reads with PIL)
+            # against PIL on one colour and one depth frame
+            from gs_localization_torch.data import native_loader as nl
+
+            if nl.NativeLoader.available():
+                dec = nl.NativeLoader(2)
+                errs = []
+                for kind, name, ref in (
+                        (nl.KIND_RGB, "frame-000000.color.png", load_image),
+                        (nl.KIND_DEPTH16, "frame-000000.depth.png",
+                         load_depth)):
+                    path = str(root / "seq-01" / name)
+                    dec.submit(0, path, kind)
+                    _, arr = dec.fetch()
+                    errs.append(float(np.abs(arr - ref(path)).max()))
+                dec.close()
+                print(f"native loader: built ({nl.library_path().name}); "
+                      f"decode vs PIL max|d| colour {errs[0]:.3e}, depth "
+                      f"{errs[1]:.3e}")
+                check(max(errs) <= 1e-6, "the native loader decodes "
+                      "differently from PIL")
+            else:
+                print(f"native loader: not built ({nl.build_error()})")
             # the sfm stage is not ported: write its two files
             out_s = root / "output_tpu"
             out_s.mkdir()
@@ -1619,13 +2026,15 @@ def main() -> None:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None}
 
-    # K1/K2 run on two paths: localization, and the scene runner's stream
-    # training and localization (each counted from 0 over its own run)
-    k12_launches = {k: launches_loc[k] + launches_scene_train[k]
-                    + launches_scene_loc[k]
+    # K1/K2 run on four paths: localization, few-shot training, the viewer,
+    # and the scene runner's stream training and localization (each counted
+    # from 0 over its own run)
+    k12_launches = {k: launches_loc[k] + launches_fs[k] + launches_view[k]
+                    + launches_scene_train[k] + launches_scene_loc[k]
                     for k in ("stream_fwd", "stream_bwd")}
-    print(f"K1/K2 launches: localization {launches_loc}, scene runner "
-          f"train {launches_scene_train}, localize {launches_scene_loc}")
+    print(f"K1/K2 launches: localization {launches_loc}, few-shot training "
+          f"{launches_fs}, viewer {launches_view}, scene runner train "
+          f"{launches_scene_train}, localize {launches_scene_loc}")
     kernels = [
         entry("stream_fwd", "stream_blend.cu",
               "gs_localization_tpu/raster/stream_blend.py:85",

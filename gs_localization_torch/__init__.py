@@ -7,12 +7,17 @@ is found by path:
 - ``raster``    : preprocess, binning (pair stream or per-tile id matrix), the
                   stream and pregathered blends (hand-written CUDA kernels
                   for sm_90a, plain PyTorch on the CPU), pose mode.
-- ``data``      : Gaussian map PLY files, in-memory scenes.
-- ``ops``       : image-gradient tracking masks, SSIM, k-NN distances.
-- ``mapping``   : map training: losses, per-group Adam, densification.
+- ``data``      : Gaussian map PLY files, COLMAP models and databases,
+                  scenes (COLMAP, 7-Scenes, Blender), RGB-D point clouds,
+                  the native threaded image loader.
+- ``ops``       : image-gradient tracking masks, SSIM, LPIPS, k-NN
+                  distances, undistortion.
+- ``mapping``   : map training: losses, per-group Adam, densification,
+                  few-shot pseudo views.
 - ``loc``       : gradient-descent pose refinement.
-- ``sfm``       : pose-error metrics.
-- ``pipelines`` : query localization, map training.
+- ``sfm``       : pose-error metrics, pose-result files.
+- ``pipelines`` : query localization, map training, the scene runner.
+- ``utils``     : configs, metrics logging, profiling, a web viewer.
 
 Device policy: entry points that create tensors take ``device="cuda"`` by
 default and raise when CUDA is absent; pass ``device="cpu"`` to run the plain

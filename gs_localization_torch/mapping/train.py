@@ -17,7 +17,7 @@ densification can zero rows of them and ``grow_capacity`` can pad them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, NamedTuple, Optional
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,6 +47,7 @@ class MapTrainConfig:
     lambda_dssim: float = 0.2
     lambda_pseudo_depth: float = 0.01
     lambda_gt_depth: float = 0.05
+    lambda_pseudo_view: float = 0.005
     random_background: bool = False
 
 
@@ -170,6 +171,43 @@ def grow_capacity(state: MapTrainState, new_capacity: int) -> MapTrainState:
         densify=state.densify.grown(new_capacity))
 
 
+def _leaves(g0: GaussianParams):
+    """The trainable fields as fresh leaves, and a zero ``means2d_offset``
+    leaf whose gradient is the screen-space gradient of the densify
+    statistics."""
+    params = {k: getattr(g0, k).detach().requires_grad_() for k in TRAINABLE}
+    offset = torch.zeros((g0.capacity, 2), dtype=torch.float32,
+                         device=g0.device, requires_grad=True)
+    return params, offset
+
+
+def _grads(loss: torch.Tensor, params, offset):
+    leaves = [params[k] for k in TRAINABLE] + [offset]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(x) if gr is None else gr
+            for x, gr in zip(leaves, grads)]
+
+
+@torch.no_grad()
+def _update(state: MapTrainState, cfg: MapTrainConfig, grads, visibility,
+            radii, width: int, height: int) -> MapTrainState:
+    """One Adam step of every group from ``grads`` (the trainable fields'
+    then the offset's) and the densify statistics of the step."""
+    g0 = state.gaussians
+    live = g0.live
+    new_params, new_opt = {}, {}
+    for name, gr in zip(TRAINABLE, grads):
+        # mask dead slots so their Adam moments stay zero
+        gr = gr * live.reshape((-1,) + (1,) * (gr.dim() - 1))
+        new_params[name], new_opt[name] = adam_step(
+            cfg, name, getattr(g0, name), gr, state.opt_state[name])
+    new_densify = update_stats(state.densify, grads[-1], visibility, radii,
+                               width, height)
+    return state.replace(gaussians=g0.replace(**new_params),
+                         opt_state=new_opt, densify=new_densify,
+                         step=state.step + 1)
+
+
 def train_step(
     state: MapTrainState,
     camera: Camera,
@@ -178,17 +216,23 @@ def train_step(
     raster_cfg: RasterizerConfig,
     gt_depth: Optional[torch.Tensor] = None,
     pseudo_depth: Optional[torch.Tensor] = None,
+    pseudo_camera: Optional[Camera] = None,
+    pseudo_view_depth: Optional[torch.Tensor] = None,
 ):
     """One optimization step -> (new state, aux dict of tensors). No host
-    sync: the flags in ``aux`` stay on the device. (The JAX step's pseudo
-    camera term waits with the pseudo views.)"""
+    sync: the flags in ``aux`` stay on the device.
+
+    ``pseudo_camera``/``pseudo_view_depth`` add the few-shot pseudo-view
+    term: the pseudo camera is rendered in the same graph (the step's
+    background, no screen-space offset) and
+    ``lambda_pseudo_view * min-Pearson(pseudo_view_depth, its depth)`` is
+    added to the loss (``aux["pseudo_view"]``; ``aux["total"]`` stays the
+    main view's loss, as in the JAX step). The densify statistics come from
+    the main view only."""
     g0 = state.gaussians
-    dev = g0.device
-    bg = (torch.rand(3, generator=state.generator, device=dev)
+    bg = (torch.rand(3, generator=state.generator, device=g0.device)
           if cfg.random_background else None)
-    params = {k: getattr(g0, k).detach().requires_grad_() for k in TRAINABLE}
-    offset = torch.zeros((g0.capacity, 2), dtype=torch.float32, device=dev,
-                         requires_grad=True)
+    params, offset = _leaves(g0)
     g = g0.replace(**params)
     out = rasterize(g, camera, raster_cfg, bg=bg, means2d_offset=offset)
     loss, aux = losses.training_loss(
@@ -196,27 +240,68 @@ def train_step(
         pseudo_depth=pseudo_depth, lambda_dssim=cfg.lambda_dssim,
         lambda_pseudo_depth=cfg.lambda_pseudo_depth,
         lambda_gt_depth=cfg.lambda_gt_depth)
-    leaves = [params[k] for k in TRAINABLE] + [offset]
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(x) if gr is None else gr
-             for x, gr in zip(leaves, grads)]
-
-    with torch.no_grad():
-        live = g0.live
-        new_params, new_opt = {}, {}
-        for name, gr in zip(TRAINABLE, grads):
-            # mask dead slots so their Adam moments stay zero
-            gr = gr * live.reshape((-1,) + (1,) * (gr.dim() - 1))
-            new_params[name], new_opt[name] = adam_step(
-                cfg, name, getattr(g0, name), gr, state.opt_state[name])
-        new_densify = update_stats(state.densify, grads[-1], out.visibility,
-                                   out.radii, camera.width, camera.height)
-    new_state = state.replace(gaussians=g0.replace(**new_params),
-                              opt_state=new_opt, densify=new_densify,
-                              step=state.step + 1)
+    if pseudo_camera is not None and pseudo_view_depth is not None:
+        pv = rasterize(g, pseudo_camera, raster_cfg, bg=bg)
+        pv_loss = losses.pearson_depth_loss(pseudo_view_depth, pv.depth)
+        loss = loss + cfg.lambda_pseudo_view * pv_loss
+        aux["pseudo_view"] = pv_loss
+    grads = _grads(loss, params, offset)
+    new_state = _update(state, cfg, grads, out.visibility, out.radii,
+                        camera.width, camera.height)
     aux = {k: v.detach() for k, v in aux.items()}
     aux["num_rendered"] = out.num_rendered
     aux["overflow"] = out.overflow
     aux["tile_overflow"] = out.tile_overflow
     aux["max_tile_count"] = out.max_tile_count
     return new_state, aux
+
+
+def train_step_batched(
+    state: MapTrainState,
+    cameras: Sequence[Camera],
+    gt_images: torch.Tensor,                 # (B, H, W, 3)
+    cfg: MapTrainConfig,
+    raster_cfg: RasterizerConfig,
+    gt_depths: Optional[torch.Tensor] = None,  # (B, H, W)
+):
+    """One step on the mean loss of B views of one image size: one Adam
+    update from the gradients of the mean, a zero background, the random
+    generator left as it is. The views are rendered one after another,
+    each backward taken at once, so one view's graph is alive at a time;
+    one ``means2d_offset`` leaf serves all of them, so its gradient (the
+    densify statistics') is the mean loss's. Visibility is OR-ed and radii
+    max-ed over the views. Returns (new state, aux with ``total``, ``l1``
+    (means over the views), ``overflow``, ``tile_overflow`` (any) and
+    ``max_tile_count`` (max))."""
+    g0 = state.gaussians
+    params, offset = _leaves(g0)
+    g = g0.replace(**params)
+    n = len(cameras)
+    grads, totals, l1s = None, [], []
+    visibility, radii, flags = None, None, []
+    for b, cam in enumerate(cameras):
+        out = rasterize(g, cam, raster_cfg, means2d_offset=offset)
+        loss, aux = losses.training_loss(
+            out.color, gt_images[b], depth=out.depth,
+            gt_depth=None if gt_depths is None else gt_depths[b],
+            lambda_dssim=cfg.lambda_dssim,
+            lambda_gt_depth=cfg.lambda_gt_depth)
+        gb = _grads(loss / n, params, offset)
+        grads = gb if grads is None else [a + c for a, c in zip(grads, gb)]
+        totals.append(loss.detach())
+        l1s.append(aux["l1"].detach())
+        visibility = out.visibility if visibility is None \
+            else visibility | out.visibility
+        radii = out.radii if radii is None else torch.maximum(radii,
+                                                              out.radii)
+        flags.append((out.overflow, out.tile_overflow, out.max_tile_count))
+    new_state = _update(state, cfg, grads, visibility, radii,
+                        cameras[0].width, cameras[0].height)
+    overflow, tile_overflow, max_tile_count = zip(*flags)
+    return new_state, {
+        "total": torch.stack(totals).mean(),
+        "l1": torch.stack(l1s).mean(),
+        "overflow": torch.stack(overflow).any(),
+        "tile_overflow": torch.stack(tile_overflow).any(),
+        "max_tile_count": torch.stack(max_tile_count).max(),
+    }

@@ -107,7 +107,7 @@ def _refuse_weights(args, files, what: str) -> None:
     if found:
         raise NotImplementedError(
             f"--weights-dir holds {found}: {what} is not ported yet "
-            "(ROADMAP.md §1 items 11 and 13)")
+            "(ROADMAP.md §1 item 13)")
 
 
 def stage_train(args):

@@ -464,13 +464,86 @@ def test_train_step_cuda_matches_cpu(case, layout):
     torch.testing.assert_close(s_k.densify.denom.cpu(), s_p.densify.denom)
 
 
+@pytest.mark.parametrize("layout", ["pregathered", "stream"])
+def test_pseudo_view_step_cuda_matches_cpu(case, layout):
+    """One ``train_step`` with the few-shot pseudo-view term on the card
+    against the CPU from the same state: the pseudo camera's render and
+    its backward launch the layout's kernels once more."""
+    cfg = case["pre"] if layout == "pregathered" else case["cfg"]
+    tau = torch.tensor([0.01, -0.008, 0.012, 0.02, -0.015, 0.01])
+    tau_p = torch.tensor([-0.03, 0.02, 0.01, 0.03, 0.02, -0.02])
+    res = []
+    for dev in (case["device"], torch.device("cpu")):
+        g, cam = _on(case["arrays"], dev)
+        pcam = cam.with_delta(tau_p.to(dev))
+        with torch.no_grad():
+            gt = rasterize(g, cam.with_delta(tau.to(dev)), cfg)
+            prior = 1.0 / (0.1 + rasterize(g, pcam, cfg).color.mean(-1))
+        state = mtrain.init_training(g, mtrain.MapTrainConfig())
+        gsl.reset_launches()
+        state, aux = mtrain.train_step(state, cam, gt.color,
+                                       mtrain.MapTrainConfig(), cfg,
+                                       gt_depth=gt.depth, pseudo_camera=pcam,
+                                       pseudo_view_depth=prior)
+        if dev.type == "cuda":
+            k = "stream" if layout == "stream" else "pregathered"
+            assert gsl.LAUNCHES[f"{k}_fwd"] == gsl.LAUNCHES[f"{k}_bwd"] == 2
+        res.append((aux, state))
+    (a_k, s_k), (a_p, s_p) = res
+    for k in ("total", "pseudo_view"):
+        assert float(a_k[k]) == pytest.approx(float(a_p[k]), rel=1e-5), k
+    for name in TRAINED:
+        mu_k, mu_p = s_k.opt_state[name].mu.cpu(), s_p.opt_state[name].mu
+        scale = max(float(mu_p.abs().max()), 1e-30)
+        torch.testing.assert_close(mu_k / scale, mu_p / scale, atol=5e-3,
+                                   rtol=1e-2, msg=name)
+    torch.testing.assert_close(s_k.densify.denom.cpu(), s_p.densify.denom)
+
+
+@pytest.mark.parametrize("layout", ["pregathered", "stream"])
+def test_batched_step_cuda_matches_cpu(case, layout):
+    """``train_step_batched`` over 3 views on the card against the CPU:
+    one forward and one backward launch per view."""
+    cfg = case["pre"] if layout == "pregathered" else case["cfg"]
+    taus = torch.tensor(np.random.default_rng(3).uniform(
+        -0.02, 0.02, (3, 6)), dtype=torch.float32)
+    res = []
+    for dev in (case["device"], torch.device("cpu")):
+        g, cam = _on(case["arrays"], dev)
+        cams = [cam.with_delta(t.to(dev)) for t in taus]
+        with torch.no_grad():
+            gts = torch.stack([rasterize(g, c.with_delta(taus[0].to(dev)),
+                                         cfg).color for c in cams])
+        state = mtrain.init_training(g, mtrain.MapTrainConfig())
+        gsl.reset_launches()
+        state, aux = mtrain.train_step_batched(
+            state, cams, gts, mtrain.MapTrainConfig(), cfg)
+        if dev.type == "cuda":
+            k = "stream" if layout == "stream" else "pregathered"
+            assert gsl.LAUNCHES[f"{k}_fwd"] == gsl.LAUNCHES[f"{k}_bwd"] == 3
+        res.append((aux, state))
+    (a_k, s_k), (a_p, s_p) = res
+    assert float(a_k["total"]) == pytest.approx(float(a_p["total"]),
+                                                rel=1e-5)
+    assert int(a_k["max_tile_count"]) == int(a_p["max_tile_count"])
+    for name in TRAINED:
+        mu_k, mu_p = s_k.opt_state[name].mu.cpu(), s_p.opt_state[name].mu
+        scale = max(float(mu_p.abs().max()), 1e-30)
+        torch.testing.assert_close(mu_k / scale, mu_p / scale, atol=5e-3,
+                                   rtol=1e-2, msg=name)
+    torch.testing.assert_close(s_k.densify.denom.cpu(), s_p.densify.denom)
+
+
 def test_oracle_and_n_touched_cuda_match_cpu(case):
     """render_oracle and rasterize(return_n_touched=True) on the card
     against the CPU. Both are plain PyTorch on either device (no hand
     kernel: the JAX functions are ``lax.scan``s): images to 1e-5; the
-    touched-pixel counts equal but for Gaussians whose alpha or T test
-    sits within the card's and the CPU's ``exp`` rounding of its threshold
-    (at most 1 in 1,000 Gaussians, by at most 2 pixels)."""
+    touched-pixel counts equal. (A count can differ only where a pair's
+    alpha or inclusive log T lies within a few float32 ULPs of its
+    threshold: ``chip_smoke.py``'s n_touched phase measured none on these
+    two scenes, and one pixel of one Gaussian in 100,000 at the bench
+    scene, whose alpha lay 2 ULPs above 1/255 on the card and 6 below on
+    the CPU.)"""
     from gs_localization_torch.raster.oracle import render_oracle
 
     cfg = case["pre"].replace(chunk=32)
@@ -488,6 +561,4 @@ def test_oracle_and_n_touched_cuda_match_cpu(case):
         torch.testing.assert_close(x_k, x_p, atol=1e-5, rtol=0)
     torch.testing.assert_close(c_k, c_p, atol=1e-5, rtol=0)
     assert n_k.dtype == torch.int32 and int(n_p.max()) > 0
-    d = (n_k.long() - n_p.long()).abs()
-    assert int(d.max()) <= 2 and int((d > 0).sum()) <= max(
-        1, n_p.numel() // 1000)
+    assert torch.equal(n_k, n_p)

@@ -49,7 +49,9 @@ def test_scan_covers_the_package():
             "scene.py", "chip_smoke.py", "run_scene.py", "presets.py",
             "colmap.py", "seven_scenes.py", "prepare.py", "io.py",
             "oracle.py", "checkpoint.py", "lpips.py",
-            "render_eval.py"} <= names
+            "render_eval.py", "pseudo_views.py", "rgbd.py", "undistort.py",
+            "blender.py", "colmap_db.py", "native_loader.py", "config.py",
+            "logging.py", "profiling.py", "viewer.py"} <= names
 
 
 def test_imports_without_nvcc_or_triton(tmp_path):
@@ -137,11 +139,13 @@ def test_reset_launches():
 def test_scene_entry_points_default_to_cuda(no_cuda, tmp_path):
     """The data layer, LPIPS and the scene runner take the card unless
     asked for the CPU."""
+    from gs_localization_torch.data.blender import load_blender_scene
     from gs_localization_torch.data.colmap import (
         ColmapCamera, ColmapImage, write_colmap_model_text)
     from gs_localization_torch.data.scene import (camera_from_colmap,
                                                   load_colmap_scene)
     from gs_localization_torch.ops.lpips import LPIPS
+    from gs_localization_torch.ops.undistort import undistort_map
     from gs_localization_torch.pipelines import run_scene
 
     cam = ColmapCamera(1, "PINHOLE", 8, 6, np.array([5.0, 5.0, 4.0, 3.0]))
@@ -151,6 +155,8 @@ def test_scene_entry_points_default_to_cuda(no_cuda, tmp_path):
     for call in (lambda: camera_from_colmap(cam, im),
                  lambda: load_colmap_scene(str(tmp_path)),
                  lambda: LPIPS([], [], []),
+                 lambda: undistort_map(8, 6, 5.0, 5.0, 4.0, 3.0),
+                 lambda: load_blender_scene(str(tmp_path)),
                  lambda: run_scene.parse_args(["--scene", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -36,6 +36,17 @@ CFG = RasterizerConfig(max_pairs=1 << 14, max_per_tile=256,
 TAU = np.array([0.01, -0.008, 0.012, 0.02, -0.015, 0.01], np.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file: its loops run many small CPU
+    ops, and when each spreads over a thread pool, the suite's parallel
+    workers (more threads than cores) make every op wait on a barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def scene():
     g = random_scene(np.random.default_rng(0), 500)

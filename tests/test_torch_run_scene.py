@@ -210,6 +210,27 @@ def test_stage_train_hands_over_what_jax_does(layout, monkeypatch, preset,
                 tt.end_sample_pseudo) == (150, 20, 290)
 
 
+@pytest.mark.parametrize("iterations,window", [
+    (300, (20, 290)), (2_500, (166, 2_416)), (28_000, (1_866, 27_066)),
+    (30_000, (2_000, 29_000)), (40_000, (2_000, 29_000))])
+def test_stage_train_scales_the_pseudo_window(layout, monkeypatch,
+                                              iterations, window):
+    """The few-shot pseudo-view window ((2k, 29k) of 30k) handed to
+    train_map is scaled to a shorter run, and still holds pseudo steps."""
+    root, _ = layout
+    rec = _Recorder()
+    monkeypatch.setattr(ttm, "train_map", rec.train_map)
+    trun.main(["--scene", str(root), "--stage", "train", "--iterations",
+               str(iterations), "--device", "cpu"])
+    tcfg = rec.calls["train"][2]
+    assert (tcfg.start_sample_pseudo, tcfg.end_sample_pseudo) == window
+    assert (tcfg.sample_pseudo_interval, tcfg.pseudo_per_edge,
+            tcfg.fewshot_threshold) == (20, 3, 200)
+    steps = [it for it in range(1, iterations + 1)
+             if it % 20 == 0 and window[0] < it < window[1]]
+    assert len(steps) == (window[1] - 1) // 20 - window[0] // 20 > 0
+
+
 @pytest.mark.parametrize("preset,iterations", CASES)
 def test_stage_localize_hands_over_what_jax_does(layout, monkeypatch,
                                                  preset, iterations):

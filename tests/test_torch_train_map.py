@@ -46,6 +46,17 @@ PIPE = dict(iterations=30, sh_degree=1, capacity_multiplier=2.0,
 EXTENT = 5.0    # percent_dense * extent above every scale: clones only
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file: its loops run many small CPU
+    ops, and when each spreads over a thread pool, the suite's parallel
+    workers (more threads than cores) make every op wait on a barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     target = random_scene(np.random.default_rng(11), n=80, sh_degree=1)
@@ -131,16 +142,32 @@ def test_snapshot_round_trips(runs):
 
 
 def test_pseudo_views_are_refused():
-    scene = SceneInfo([], [], np.zeros((1, 3), np.float32),
-                      np.zeros((1, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="depth_estimator"):
-        train_map(scene, depth_estimator=lambda rgb: rgb, device="cpu")
+    """No pseudo views (and no estimator call) for a scene with at least
+    ``fewshot_threshold`` training views, even with an estimator given."""
+    cam = camera_to_torch(make_camera(48, 32))
+    scene = SceneInfo([CameraInfo(uid=i, name=f"c{i}", camera=cam)
+                       for i in range(2)], [],
+                      np.random.default_rng(0).uniform(
+                          -1, 1, (8, 3)).astype(np.float32) + [0, 0, 4],
+                      np.full((8, 3), 0.5, np.float32))
+    logs, calls = [], []
+    train_map(scene, cfg=TrainPipelineConfig(
+        iterations=4, sh_degree=0, fewshot_threshold=2,
+        sample_pseudo_interval=1, start_sample_pseudo=0,
+        densify_from=100, opacity_reset_interval=10_000,
+        test_iterations=(), save_iterations=(), log_every=100),
+        raster_cfg=CFG, image_loader=lambda info: (np.zeros(
+            (32, 48, 3), np.float32), None),
+        depth_estimator=lambda rgb: calls.append(1) or rgb[..., 0],
+        log_fn=logs.append, device="cpu")
+    assert calls == [] and not any("few-shot" in line for line in logs)
     assert compute_scene_extent(np.array([[0.0, 0, 0], [2.0, 0, 0]])) == \
         pytest.approx(1.1)
 
 
 def test_camera_subset_swap_and_default_loader(tmp_path):
-    """Images and depths read from disk (PIL); a camera cap with one swap."""
+    """Images and depths read from disk by the default loader; a camera cap
+    with one swap."""
     from PIL import Image
 
     rng = np.random.default_rng(5)
@@ -165,7 +192,9 @@ def test_camera_subset_swap_and_default_loader(tmp_path):
         save_iterations=(), log_every=2)
     out = train_map(scene, cfg=cfg, raster_cfg=CFG, log_fn=logs.append,
                     device="cpu")
-    assert logs[0] == "too-large scene: training on 2/3 cameras"
+    # the default loader says it reads with PIL, then the camera cap
+    assert logs[0].startswith("image loader: PIL")
+    assert logs[1] == "too-large scene: training on 2/3 cameras"
     assert "[3] swapped to a fresh 2-camera subset" in logs
     assert len(_numbers(logs, r"loss=([0-9.]+)")) == 2
     assert int(out.num_live) == 20
