@@ -79,7 +79,21 @@
    against the CPU (small scene, both layouts); ``train_step_batched`` of
    4 training views against the mean single-view gradient; one viewer
    frame (a JPEG, rendered by K1); and whether the native image loader
-   built, with its decodes against PIL.
+   built, with its decodes against PIL;
+14. scene runner, all stages: a fresh copy of step 11's layout with no sfm
+   files, and one ``run_scene.main`` call ``--stage all --iterations 300``
+   with its defaults (Harris, ``--use-depth``, the stream layout): the sfm
+   stage builds the point model and the init poses on the card (at least
+   one query by PnP), train and localize follow; the launch counts of the
+   call are exact (K1 = steps + held-out renders + localize iterations,
+   K2 = steps + localize iterations, no K3/K4) and metrics.json is finite;
+   the sfm stage's wall time split into extraction, matching,
+   triangulation and PnP; the sfm stage again on the CPU into another
+   ``--out``, held against the card (keypoints, points, methods, init
+   poses); Harris and SIFT ms per 640x480 image, SIFT card vs CPU on one
+   view; ``incremental_mapping`` of the synthetic scene of
+   ``tests/test_incremental_sfm.py`` card vs CPU; ms per
+   ``bundle_adjust_np`` call.
 
 Prints one JSON line of kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -773,14 +787,25 @@ def perturbed(cam, rng, rot: float, trans: float):
 
 
 class Tee:
-    """A text stream that keeps what is written and passes it on."""
+    """A text stream that keeps what is written, with the time of each
+    write (after ``sync()``, when given, so that a line's time includes the
+    device work enqueued before it), and passes it on."""
 
-    def __init__(self, out):
-        self.out, self.parts = out, []
+    def __init__(self, out, sync=None):
+        self.out, self.parts, self.stamps, self.sync = out, [], [], sync
 
     def write(self, text):
+        if self.sync is not None:
+            self.sync()
         self.parts.append(text)
+        self.stamps.append((time.perf_counter(), text))
         return self.out.write(text)
+
+    def time_of(self, needle: str) -> float:
+        """The time of the first write that contains needle."""
+        hits = [t for t, text in self.stamps if needle in text]
+        check(bool(hits), f"no log line contains {needle!r}")
+        return hits[0]
 
     def flush(self):
         self.out.flush()
@@ -929,6 +954,289 @@ def localize_checked(label, g, queries, init, gt_w2c, pcfg, cfg):
           f"around localize_queries); metrics {metrics}")
     print(f"{label} launches: {launches}")
     return launches, ms, logs
+
+
+def synthetic_sfm_scene(rng, n_cams=8, n_pts=300, noise_px=0.4,
+                        outlier_frac=0.05, width=640, height=480):
+    """``tests/test_incremental_sfm.py``'s synthetic scene, the same draws:
+    cameras on an arc looking at a point cloud, pairwise matches with pixel
+    noise and a share of wrong associations. Returns (X, w2c, K, keypoints,
+    matches)."""
+    K = np.array([[520.0, 0, width / 2], [0, 520.0, height / 2], [0, 0, 1]])
+    X = np.stack([rng.uniform(-2.5, 2.5, n_pts),
+                  rng.uniform(-1.8, 1.8, n_pts),
+                  rng.uniform(5.0, 9.0, n_pts)], 1)
+    w2c = np.tile(np.eye(4), (n_cams, 1, 1))
+    for c in range(n_cams):
+        ang = (c - n_cams / 2) * 0.08
+        w2c[c, :3, :3] = [[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                          [-np.sin(ang), 0, np.cos(ang)]]
+        w2c[c, :3, 3] = np.array([-0.6 * c + 2.0, 0.05 * c, 0.05 * c])
+    kps, vis_ids = [], []
+    for c in range(n_cams):
+        Xc = X @ w2c[c, :3, :3].T + w2c[c, :3, 3]
+        uv = np.stack([K[0, 0] * Xc[:, 0] / Xc[:, 2] + K[0, 2],
+                       K[1, 1] * Xc[:, 1] / Xc[:, 2] + K[1, 2]], 1)
+        ok = (Xc[:, 2] > 0.2) & (uv[:, 0] >= 0) & (uv[:, 0] < width) \
+            & (uv[:, 1] >= 0) & (uv[:, 1] < height)
+        ids = np.nonzero(ok)[0]
+        kps.append((uv[ids] + noise_px * rng.standard_normal(
+            (len(ids), 2))).astype(np.float64))
+        vis_ids.append(ids)
+    matches = {}
+    for i in range(n_cams):
+        for j in range(i + 1, min(i + 4, n_cams)):
+            common, ia, ja = np.intersect1d(vis_ids[i], vis_ids[j],
+                                            return_indices=True)
+            if len(common) < 8:
+                continue
+            m = np.stack([ia, ja], 1)
+            n_out = int(outlier_frac * len(m))
+            if n_out:
+                rows = rng.choice(len(m), n_out, replace=False)
+                m[rows, 1] = rng.integers(0, len(vis_ids[j]), n_out)
+            matches[(i, j)] = m
+    return X, w2c, K, kps, matches
+
+
+def query_methods(log: str) -> dict:
+    """{query name: method} from the sfm stage's ``name: method (n inl)``
+    lines."""
+    return dict(re.findall(r"^(\S+\.png): (\w+) \(\d+ inl\)$", log,
+                           re.MULTILINE))
+
+
+def all_stages(g, cam, cfg, dev) -> dict:
+    """The scene runner's four stages in one call, the sfm stage on the
+    card (see the module docstring, step 14). Returns the call's launch
+    counts."""
+    import torch
+    import gs_localization_torch as gsl
+    from gs_localization_torch.core.camera import quat_to_rotmat
+    from gs_localization_torch.data.scene import load_image
+    from gs_localization_torch.pipelines import localize as ploc
+    from gs_localization_torch.pipelines import run_scene
+    from gs_localization_torch.sfm.bundle_adjust import bundle_adjust_np
+    from gs_localization_torch.sfm.features import (extract_harris_features,
+                                                    rgb_to_gray)
+    from gs_localization_torch.sfm.incremental import incremental_mapping
+    from gs_localization_torch.sfm.io import read_pose_results
+    from gs_localization_torch.sfm.sift import extract_sift
+    from gs_localization_torch.sfm.evaluate import pose_errors
+
+    cpu = torch.device("cpu")
+    smi = smi_line()
+    scene_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_all_",
+                                      dir=ROOT / "build"))
+    batch = ploc.refine_poses_batch
+    try:
+        # the scene phase's layout, the same views, and no sfm files
+        root = scene_dir / "chess"
+        rng_s = np.random.default_rng(13)
+        views = [cam] + [perturbed(cam, rng_s, 0.03, 0.1) for _ in
+                         range(N_SCENE_TRAIN + N_SCENE_TEST - 1)]
+        true_w2c = write_seven_scenes(root, g, views, cfg)
+        test_names = list(true_w2c)[N_SCENE_TRAIN:]
+        out = root / "output_tpu"
+        check(not out.exists(), "the layout holds sfm files")
+        # each localized query's iterations (RefineResult.num_iters)
+        loc_iters = []
+
+        def counted(*a, **kw):
+            res = batch(*a, **kw)
+            loc_iters.extend(res.num_iters)
+            return res
+
+        ploc.refine_poses_batch = counted
+        tee = Tee(sys.stdout, sync=torch.cuda.synchronize)
+        torch.cuda.synchronize()
+        gsl.reset_launches()
+        with contextlib.redirect_stdout(tee):
+            done = run_scene.main(["--scene", str(root), "--preset",
+                                   "seven_scenes", "--stage", "all",
+                                   "--iterations", str(SCENE_ITERS)])
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = dict(gsl.LAUNCHES)
+        ploc.refine_poses_batch = batch
+        log = tee.text()
+
+        # the sfm stage's outputs and its time split
+        mapped, poses = done["sfm"]
+        n_pts = int(mapped.valid.sum())
+        cloud = np.load(out / "sfm_points.npz")
+        check((out / "results_dense.txt").exists()
+              and len(cloud["points"]) == n_pts >= 1,
+              f"the sfm stage wrote {len(cloud['points'])} points")
+        check(sorted(read_pose_results(str(out / "results_dense.txt")))
+              == sorted(test_names), "results_dense.txt misses queries")
+        methods = query_methods(log)
+        check(sorted(methods) == sorted(test_names)
+              and "pnp" in methods.values(),
+              f"no query took PnP: {methods}")
+        t_sfm = tee.time_of("=== stage: sfm")
+        t_ext = tee.time_of("extracted features for")
+        t_match = tee.time_of("matched ")
+        t_tri = tee.time_of("depth-corrected;")
+        t_pnp = max(tee.time_of(f"{n}: ") for n in test_names)
+        t_train = tee.time_of("=== stage: train")
+        t_loc = tee.time_of("=== stage: localize")
+        print(f"[all] sfm stage {t_train - t_sfm:.3f} s: extraction "
+              f"{t_ext - t_sfm:.3f} s (scene and image loading, 8 tiny-image "
+              f"descriptors, retrieval, 8 Harris extractions), matching "
+              f"{t_match - t_ext:.3f} s, triangulation {t_tri - t_match:.3f} s "
+              f"(verification, tracks, DLT, depth correction), PnP "
+              f"{t_pnp - t_tri:.3f} s (colours, then per query: image, "
+              f"extraction, retrieval, matching, PnP-RANSAC), writing "
+              f"{t_train - t_pnp:.3f} s; {n_pts} sfm points ({smi})")
+        init_err = {}
+        for name in test_names:
+            q, t = poses[name]
+            R = quat_to_rotmat(torch.tensor(q)).numpy()
+            gt_w = true_w2c[name]
+            init_err[name] = pose_errors(R, t, gt_w[:3, :3], gt_w[:3, 3])
+            print(f"[all] {name}: {methods[name]}, initial error "
+                  f"{init_err[name][0] * 100:.3f} cm / "
+                  f"{init_err[name][1]:.4f} deg ({smi})")
+
+        # exact launch counts: train steps and held-out renders, then one
+        # forward and one backward per localize iteration; no K3/K4
+        n_held = min(8, N_SCENE_TEST)
+        n_loc = int(sum(loc_iters))
+        want = {"stream_fwd": SCENE_ITERS + n_held + n_loc,
+                "stream_bwd": SCENE_ITERS + n_loc, "pregathered_fwd": 0,
+                "pregathered_bwd": 0}
+        print(f"[all] launches {launches}; expected {want} ({SCENE_ITERS} "
+              f"steps, {n_held} held-out renders, {n_loc} localize "
+              f"iterations)")
+        check(launches == want and n_loc > 0,
+              f"--stage all launches {launches} != {want}")
+        _, metrics = done["localize"]
+        check((out / "metrics.json").exists(), "no metrics.json")
+        on_disk = json.loads((out / "metrics.json").read_text())
+        check(all(np.isfinite(v) for v in on_disk.values()),
+              f"non-finite metrics {on_disk}")
+        # loose gate: three runs ended at 0.373-0.375 cm / 0.175-0.177 deg
+        check(on_disk["median_trans_m"] < 0.01
+              and on_disk["median_rot_deg"] < 0.5,
+              f"the localize stage's median error is not under 1 cm / "
+              f"0.5 deg: {on_disk}")
+        print(f"[all] train stage {(t_loc - t_train) * 1e3 / SCENE_ITERS:.3f}"
+              f" ms/step (scene loading, held-out PSNR and the PLY save "
+              f"included); localize stage {(t_end - t_loc) * 1e3 / n_loc:.3f}"
+              f" ms/iteration over {n_loc} iterations (map and image loading "
+              f"included); final median error "
+              f"{on_disk['median_trans_m'] * 100:.3f} cm / "
+              f"{on_disk['median_rot_deg']:.4f} deg ({smi}); metrics.json "
+              f"{on_disk}")
+
+        # the sfm stage alone on the CPU, on the same files
+        tee_c = Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee_c):
+            done_c = run_scene.main(["--scene", str(root), "--stage", "sfm",
+                                     "--device", "cpu", "--out",
+                                     str(scene_dir / "out_cpu")])
+        mapped_c, poses_c = done_c["sfm"]
+        shares = []
+        for f_g, f_c in zip(mapped.features, mapped_c.features):
+            vg = f_g.scores.cpu().numpy() > 0
+            vc = f_c.scores.numpy() > 0
+            same = np.all(f_g.keypoints.cpu().numpy()
+                          == f_c.keypoints.numpy(), axis=1)
+            check(vg.sum() == vc.sum(), f"keypoint counts {vg.sum()} != "
+                  f"{vc.sum()} (card vs CPU)")
+            shares.append(float(same[vc].mean()))
+        n_c = int(mapped_c.valid.sum())
+        methods_c = query_methods(tee_c.text())
+        pose_d = [pose_errors(quat_to_rotmat(torch.tensor(poses[n][0])
+                                             ).numpy(), poses[n][1],
+                              quat_to_rotmat(torch.tensor(poses_c[n][0])
+                                             ).numpy(), poses_c[n][1])
+                  for n in test_names]
+        print(f"[all] sfm card vs CPU: keypoints at the same position "
+              f"{min(shares):.4f} (worst image); valid points {n_pts} vs "
+              f"{n_c}; methods {methods == methods_c}; init poses apart at "
+              f"most {max(d[0] for d in pose_d) * 100:.4f} cm / "
+              f"{max(d[1] for d in pose_d):.5f} deg")
+        check(min(shares) >= 0.99, "keypoints differ (card vs CPU)")
+        check(abs(n_pts - n_c) <= 0.01 * n_c, "sfm points differ")
+        check(methods == methods_c, f"methods {methods} != {methods_c}")
+        check(all(d[0] <= 0.01 and d[1] <= 0.1 for d in pose_d),
+              "init poses differ by more than 1 cm / 0.1 deg (card vs CPU)")
+
+        # the extractors: ms per 640x480 image on the card, and SIFT card
+        # vs CPU on one view
+        gray = rgb_to_gray(torch.tensor(load_image(
+            str(root / "seq-01" / "frame-000000.color.png")), device=dev))
+        harris_ms = time_ms(lambda: extract_harris_features(gray), 10)
+        sift_ms = time_ms(lambda: extract_sift(gray), 10)
+        sg, sc = extract_sift(gray), extract_sift(gray.cpu())
+        valid = sc.scores.numpy() > 0
+        pos = np.abs(sg.keypoints.cpu().numpy()
+                     - sc.keypoints.numpy()).max(1) <= 1e-3
+        cos = np.sum(sg.descriptors.cpu().numpy() * sc.descriptors.numpy(),
+                     1)
+        share = float((pos & (cos >= 0.9999))[valid].mean())
+        same_ori = float((sg.orientations.cpu().numpy()
+                          == sc.orientations.numpy())[valid].mean())
+        print(f"[all] 640x480 extraction on the card: Harris "
+              f"{harris_ms:.3f} ms, SIFT {sift_ms:.3f} ms per image (median "
+              f"of 10 after a warm-up; {smi}); SIFT card vs CPU: "
+              f"{share:.4f} of {int(valid.sum())} keypoints within 1e-3 px "
+              f"with cosine >= 0.9999 (orientations equal on "
+              f"{same_ori:.4f})")
+        check(share >= 0.95, "SIFT differs (card vs CPU)")
+
+        # bundle adjustment and the incremental mapper, card vs CPU
+        X, w2c_s, K, kps, matches = synthetic_sfm_scene(
+            np.random.default_rng(0))
+        recs, costs, map_s = [], [], []
+        for d in (dev, cpu):
+            tee_m = Tee(sys.stdout)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee_m):
+                recs.append(incremental_mapping(kps, matches, K, seed=2,
+                                                verbose=True, device=d))
+            torch.cuda.synchronize()
+            map_s.append(time.perf_counter() - t0)
+            costs.append(float(re.findall(r"BA over .* -> ([\d.]+)",
+                                          tee_m.text())[-1]))
+        (rg, rc), (cg, cc) = recs, costs
+        print(f"[all] incremental_mapping card vs CPU: init pair "
+              f"{rg.init_pair} / {rc.init_pair}, registered "
+              f"{int(rg.registered.sum())} / {int(rc.registered.sum())}, "
+              f"final BA cost {cg} / {cc}; wall {map_s[0]:.3f} / "
+              f"{map_s[1]:.3f} s ({smi})")
+        check(rg.init_pair == rc.init_pair
+              and np.array_equal(rg.registered, rc.registered),
+              "incremental_mapping registers differently (card vs CPU)")
+        check(abs(cg - cc) <= 1e-3 * abs(cc), "final BA costs differ")
+        # one BA call: the first 5 cameras at their true poses, 150 points
+        # moved by 4 cm on each axis, their true projections
+        n_obs = 150
+        cam_idx = np.repeat(np.arange(5), n_obs)
+        pt_idx = np.tile(np.arange(n_obs), 5)
+        Xc = np.einsum("eij,ej->ei", w2c_s[cam_idx, :3, :3],
+                       X[pt_idx]) + w2c_s[cam_idx, :3, 3]
+        uv = Xc[:, :2] / Xc[:, 2:] * 520.0 + K[:2, 2]
+        ba_args = (w2c_s[:5], np.tile(K[None], (5, 1, 1)),
+                   X[:n_obs] + 0.04, cam_idx, pt_idx, uv)
+        # one call on each device (the mapper's BA calls warmed both up;
+        # the call ends in a copy to the host)
+        ba_ms = []
+        for d in (dev, cpu):
+            t0 = time.perf_counter()
+            bundle_adjust_np(*ba_args, device=d)
+            ba_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[all] bundle_adjust_np: card {ba_ms[0]:.1f} ms, CPU "
+              f"{ba_ms[1]:.1f} ms per call (15 LM steps, 40 CG iterations "
+              f"each; 5 cameras, {n_obs} points, {len(cam_idx)} "
+              f"observations; one call each; {smi})")
+        return launches
+    finally:
+        ploc.refine_poses_batch = batch
+        shutil.rmtree(scene_dir, ignore_errors=True)
 
 
 def touched_case(seed: int, n: int, spread: float, device):
@@ -1909,6 +2217,10 @@ def main() -> None:
         finally:
             shutil.rmtree(scene_dir, ignore_errors=True)
 
+    # ---- the scene runner's four stages, the sfm stage on the card ----------
+    with phase("scene runner, all stages (sfm on the card)"):
+        launches_all = all_stages(g, cam, cfg, dev)
+
     # ---- timing at the bench shapes -----------------------------------------
     with phase("timing"):
         clocks = "clocks.sm,clocks.max.sm"
@@ -2026,15 +2338,16 @@ def main() -> None:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None}
 
-    # K1/K2 run on four paths: localization, few-shot training, the viewer,
-    # and the scene runner's stream training and localization (each counted
-    # from 0 over its own run)
+    # K1/K2 run on five paths: localization, few-shot training, the viewer,
+    # the scene runner's stream training and localization, and its four
+    # stages in one call (each counted from 0 over its own run)
     k12_launches = {k: launches_loc[k] + launches_fs[k] + launches_view[k]
                     + launches_scene_train[k] + launches_scene_loc[k]
-                    for k in ("stream_fwd", "stream_bwd")}
+                    + launches_all[k] for k in ("stream_fwd", "stream_bwd")}
     print(f"K1/K2 launches: localization {launches_loc}, few-shot training "
           f"{launches_fs}, viewer {launches_view}, scene runner train "
-          f"{launches_scene_train}, localize {launches_scene_loc}")
+          f"{launches_scene_train}, localize {launches_scene_loc}, all "
+          f"stages {launches_all}")
     kernels = [
         entry("stream_fwd", "stream_blend.cu",
               "gs_localization_tpu/raster/stream_blend.py:85",

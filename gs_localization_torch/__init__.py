@@ -15,8 +15,12 @@ is found by path:
 - ``mapping``   : map training: losses, per-group Adam, densification,
                   few-shot pseudo views.
 - ``loc``       : gradient-descent pose refinement.
-- ``sfm``       : pose-error metrics, pose-result files.
-- ``pipelines`` : query localization, map training, the scene runner.
+- ``sfm``       : the classical SfM front end (Harris / SIFT features,
+                  matching, retrieval, triangulation, PnP, bundle
+                  adjustment, incremental mapping), pose-error metrics,
+                  pose-result files.
+- ``pipelines`` : query localization, map training, SfM initialization,
+                  the scene runner.
 - ``utils``     : configs, metrics logging, profiling, a web viewer.
 
 Device policy: entry points that create tensors take ``device="cuda"`` by

@@ -1,24 +1,25 @@
 """Scene runner CLI: the LoGS stages as one command, on the port.
 
   python -m gs_localization_torch.pipelines.run_scene \
-      --scene /data/7scenes/chess --preset seven_scenes --stage prepare
-  ... --stage train      (then --stage localize)
+      --scene /data/7scenes/chess --preset seven_scenes --stage all
 
 Stages (the JAX package's ``run_scene``, same arguments, defaults and
 files):
   prepare   : split layout (7-Scenes, Cambridge, LLFF / Mip-360)
-  sfm       : not ported yet (ROADMAP.md §1 item 13); the port's train and
-              localize stages read the two files it writes into ``--out``:
-              ``sfm_points.npz`` (init cloud) and ``results_dense.txt``
-              (init poses), e.g. from the JAX package's sfm stage
+  sfm       : the classical front end (Harris or SIFT features, mutual-NN
+              matching, tiny-image retrieval): point model of the train
+              images + PnP init poses -> out/results_dense.txt,
+              out/sfm_points.npz
   train     : 3DGS map -> out/gs_map/iteration_N/point_cloud.ply
   localize  : pose refinement + median/recall metrics -> out/results.txt,
               out/metrics.json
 
 ``--device`` (default ``cuda``) picks the card or, with ``cpu``, the plain
 PyTorch versions of the kernels. ``--weights-dir`` raises where it would
-light up a network that is not ported (SuperPoint keypoints, the MiDaS /
-DPT depth prior). ``main`` returns each stage's result by stage name.
+light up a network that is not ported (SuperPoint, SuperGlue and NetVLAD in
+the sfm stage, SuperPoint keypoints in the localize stage, the MiDaS / DPT
+depth prior in the train stage); checkpoints that are absent leave the
+classical path. ``main`` returns each stage's result by stage name.
 """
 
 from __future__ import annotations
@@ -31,13 +32,9 @@ import numpy as np
 
 from .. import resolve_device
 
-_SFM_PENDING = ("the sfm stage is not ported yet (ROADMAP.md §1 item 13, "
-                "the SfM front end): write sfm_points.npz and "
-                "results_dense.txt into --out (e.g. with the JAX package's "
-                "run_scene --stage sfm) and run the train and localize "
-                "stages")
 # the checkpoints whose presence lights up a network in the JAX runner
 _SUPERPOINT = "superpoint_v1.pth"
+_SFM_NETWORKS = (_SUPERPOINT, "superglue_outdoor.pth", "Pitts30K_struct.mat")
 _DEPTH_PRIORS = ("dpt_hybrid-midas-501f0c75.pt", "midas_v21-f6b98070.pt")
 
 
@@ -93,8 +90,64 @@ def _load_scene(args):
     )
 
 
+def _build_frontend(args, cfg):
+    """The sfm stage's extractor from ``--extractor``: None for Harris (the
+    pipeline's default), else DoG + rootSIFT. A checkpoint in
+    ``--weights-dir`` that would light up SuperPoint, SuperGlue or NetVLAD
+    raises; absent files leave the classical front end."""
+    _refuse_weights(args, _SFM_NETWORKS,
+                    "the learned SfM front end (SuperPoint / SuperGlue / "
+                    "NetVLAD)")
+    if args.extractor != "sift":
+        return None
+    from ..sfm.features import rgb_to_gray
+    from ..sfm.sift import extract_sift
+
+    return lambda img: extract_sift(  # noqa: E731
+        rgb_to_gray(img), num_keypoints=cfg.num_keypoints)
+
+
 def stage_sfm(args):
-    raise NotImplementedError(_SFM_PENDING)
+    from ..data.scene import load_depth, load_image
+    from ..sfm.io import write_pose_results
+    from .sfm_init import SfmInitConfig, build_point_model, localize_query_pnp
+
+    scene = _load_scene(args)
+    cfg = SfmInitConfig()
+    extractor = _build_frontend(args, cfg)
+    imgs = [load_image(c.image_path) for c in scene.train_cameras]
+    deps = None
+    if args.use_depth:
+        deps = [load_depth(c.depth_path) if c.depth_path and
+                os.path.exists(c.depth_path) else
+                np.zeros(imgs[i].shape[:2], np.float32)
+                for i, c in enumerate(scene.train_cameras)]
+    train_cams = [c.camera for c in scene.train_cameras]
+    mapped = build_point_model(imgs, train_cams, cfg, depth_maps=deps,
+                               extractor=extractor, device=args.device)
+    poses = {}
+    for q in scene.test_cameras:
+        cam = q.camera
+        K = np.array([[float(cam.fx), 0, float(cam.cx)],
+                      [0, float(cam.fy), float(cam.cy)], [0, 0, 1.0]])
+        qvec, tvec, info = localize_query_pnp(
+            load_image(q.image_path), K, mapped, train_cams, cfg,
+            extractor=extractor, device=args.device)
+        poses[q.name] = (qvec, tvec)
+        print(f"{q.name}: {info['method']} ({info.get('num_inliers', 0)} inl)")
+    out = os.path.join(args.out, "results_dense.txt")
+    os.makedirs(args.out, exist_ok=True)
+    write_pose_results(out, poses)
+    print(f"wrote {out}")
+    # persist the triangulated cloud: scenes whose gt model carries no
+    # points3D (cambridge/llff layouts) initialize the map from it
+    valid = np.asarray(mapped.valid)
+    pts = np.asarray(mapped.points)[valid]
+    cols = np.asarray(mapped.track_colors)[valid]
+    np.savez(os.path.join(args.out, "sfm_points.npz"),
+             points=pts.astype(np.float32), colors=cols.astype(np.float32))
+    print(f"saved {len(pts)} sfm points")
+    return mapped, poses
 
 
 def _refuse_weights(args, files, what: str) -> None:
@@ -107,7 +160,7 @@ def _refuse_weights(args, files, what: str) -> None:
     if found:
         raise NotImplementedError(
             f"--weights-dir holds {found}: {what} is not ported yet "
-            "(ROADMAP.md §1 item 13)")
+            "(ROADMAP.md §1 item 13, networks)")
 
 
 def stage_train(args):
@@ -239,11 +292,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-per-tile", type=int, default=1024)
     ap.add_argument("--extractor", default="harris",
                     choices=("harris", "sift"),
-                    help="SfM front-end features (read by the sfm stage)")
+                    help="SfM front-end features (sift = DoG+rootSIFT; "
+                         "read by the sfm stage)")
     ap.add_argument("--weights-dir", default=None,
                     help="directory of official checkpoints (WEIGHTS.md); "
                          "the networks they enable are not ported yet, so "
-                         "a checkpoint a stage would use raises")
+                         "a checkpoint a stage would use raises, and "
+                         "absent files leave the classical front end")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the hand-written kernels) or cpu (their "
                          "plain PyTorch versions)")

@@ -3,7 +3,9 @@
   e_t = || -R_gt^T t_gt + R^T t ||      (camera-center distance)
   e_R = arccos((tr(R_gt^T R) - 1) / 2)  degrees
 
-plus the threshold-recall table at (1cm,1deg) ... (5m,10deg).
+plus the threshold-recall table at (1cm,1deg) ... (5m,10deg), and the
+Umeyama similarity alignment that compares a free-gauge reconstruction with
+ground truth.
 """
 
 from __future__ import annotations
@@ -51,3 +53,25 @@ def summarize_errors(
         ratio = float(np.mean((e_t < dt) & (e_r < dr)))
         out[f"recall@{dt}m,{dr}deg"] = ratio
     return out
+
+
+def umeyama_alignment(
+    src: np.ndarray, dst: np.ndarray, with_scale: bool = True,
+) -> Tuple[float, np.ndarray, np.ndarray]:
+    """Similarity transform (s, R, t) minimizing ||s R src + t - dst||^2.
+
+    Used to compare an incremental-SfM reconstruction (free gauge) against
+    ground truth. Umeyama (1991)."""
+    src, dst = np.asarray(src, np.float64), np.asarray(dst, np.float64)
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    sc, dc = src - mu_s, dst - mu_d
+    cov = dc.T @ sc / len(src)
+    U, D, Vt = np.linalg.svd(cov)
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1.0
+    R = U @ S @ Vt
+    var_s = (sc**2).sum() / len(src)
+    s = float(np.trace(np.diag(D) @ S) / var_s) if with_scale else 1.0
+    t = mu_d - s * R @ mu_s
+    return s, R, t

@@ -562,3 +562,110 @@ def test_oracle_and_n_touched_cuda_match_cpu(case):
     torch.testing.assert_close(c_k, c_p, atol=1e-5, rtol=0)
     assert n_k.dtype == torch.int32 and int(n_p.max()) > 0
     assert torch.equal(n_k, n_p)
+
+
+def _blobs(rng, h: int, w: int, n: int = 300) -> np.ndarray:
+    """A grayscale image of Gaussian blobs in [0, 1] (float32)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.zeros((h, w))
+    for y0, x0, a, s in zip(rng.uniform(8, h - 8, n), rng.uniform(8, w - 8, n),
+                            rng.uniform(0.3, 1.0, n), rng.uniform(1.5, 5, n)):
+        img += a * np.exp(-((yy - y0) ** 2 + (xx - x0) ** 2) / (2 * s * s))
+    return (img / img.max()).astype(np.float32)
+
+
+def test_harris_and_sift_cuda_match_cpu(cuda_device):
+    """The SfM extractors on the card against the CPU: Harris (shifted-add
+    filters, the same bits) slot for slot; SIFT, whose histograms are
+    scatter-adds (atomics on the card), by the share of keypoints at the
+    same position with the same orientation and a descriptor within
+    cosine 0.9999."""
+    from gs_localization_torch.sfm.features import extract_harris_features
+    from gs_localization_torch.sfm.sift import extract_sift
+
+    img = _blobs(np.random.default_rng(3), 240, 320)
+    fc = extract_harris_features(img, device="cpu")
+    fg = extract_harris_features(img, device=cuda_device)
+    kc, kg = fc.keypoints.numpy(), fg.keypoints.cpu().numpy()
+    valid = fc.scores.numpy() > 0
+    assert valid.sum() > 100
+    same = np.all(kc == kg, axis=1)
+    assert same[valid].mean() >= 0.99
+    np.testing.assert_allclose(fg.scores.cpu().numpy()[same],
+                               fc.scores.numpy()[same], rtol=1e-5)
+    np.testing.assert_allclose(fg.descriptors.cpu().numpy()[same],
+                               fc.descriptors.numpy()[same], atol=1e-5)
+    sc = extract_sift(img, device="cpu")
+    sg = extract_sift(img, device=cuda_device)
+    valid = sc.scores.numpy() > 0
+    assert valid.sum() > 50
+    pos = np.abs(sg.keypoints.cpu().numpy() - sc.keypoints.numpy()).max(1) \
+        <= 1e-3
+    ori = sg.orientations.cpu().numpy() == sc.orientations.numpy()
+    cos = np.sum(sg.descriptors.cpu().numpy() * sc.descriptors.numpy(), 1)
+    share = (pos & ori & (cos >= 0.9999))[valid].mean()
+    assert share >= 0.95, (pos[valid].mean(), ori[valid].mean())
+
+
+def test_bundle_adjust_cuda_matches_cpu(cuda_device):
+    """bundle_adjust_np (15 LM steps) on the card against the CPU: 5
+    cameras on an arc perturbed by 0.015-rad tangents, 150 points moved by
+    4 cm, 0.3 px noise. Only camera 0 is fixed, so the scale of the
+    solution is free: translations and points move along that gauge with
+    the CG's rounding (the gathers' adjoints are atomics on the card). The
+    card's camera centres and points are brought onto the CPU's by one
+    similarity (Umeyama) before they are compared, within 1 mm: past the
+    gauge the 15-step float32 solution still sits in a flat valley whose
+    costs agree far below the cost tolerance (the card read 0.24 mm for
+    the centres and 0.31 mm for the points). Costs, rotations and
+    reprojections are compared as they come."""
+    from gs_localization_torch.core.se3 import se3_exp
+    from gs_localization_torch.sfm.bundle_adjust import bundle_adjust_np
+    from gs_localization_torch.sfm.evaluate import umeyama_alignment
+
+    rng = np.random.default_rng(0)
+    K = np.array([[520.0, 0, 320], [0, 520.0, 240], [0, 0, 1]])
+    X = np.stack([rng.uniform(-2.5, 2.5, 150), rng.uniform(-1.8, 1.8, 150),
+                  rng.uniform(5.0, 9.0, 150)], 1)
+    w2c = np.tile(np.eye(4), (5, 1, 1))
+    for c in range(5):
+        a = (c - 2.5) * 0.08
+        w2c[c, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                          [-np.sin(a), 0, np.cos(a)]]
+        w2c[c, :3, 3] = [-0.6 * c + 2.0, 0.05 * c, 0.05 * c]
+    cam_idx = np.repeat(np.arange(5), 150)
+    pt_idx = np.tile(np.arange(150), 5)
+
+    def project(w, x):
+        Xc = np.einsum("eij,ej->ei", w[cam_idx, :3, :3], x[pt_idx]) \
+            + w[cam_idx, :3, 3]
+        return Xc[:, :2] / Xc[:, 2:] * 520.0 + [320, 240]
+
+    uv = project(w2c, X) + 0.3 * rng.standard_normal((750, 2))
+    tau = torch.tensor(0.015 * rng.standard_normal((5, 6)),
+                       dtype=torch.float32)
+    w2c0 = se3_exp(tau).numpy() @ w2c
+    w2c0[0] = w2c[0]
+    args = (w2c0, np.tile(K[None], (5, 1, 1)),
+            X + 0.04 * rng.standard_normal(X.shape), cam_idx, pt_idx, uv)
+    wc, xc, c0c, cc = bundle_adjust_np(*args, device="cpu")
+    wg, xg, c0g, cg = bundle_adjust_np(*args, device=cuda_device)
+    np.testing.assert_allclose(c0g, c0c, rtol=1e-5)
+    np.testing.assert_allclose(cg, cc, rtol=1e-3)
+    assert cg < 0.02 * c0g
+    np.testing.assert_allclose(wg[:, :3, :3], wc[:, :3, :3], atol=1e-4)
+    d_px = np.abs(project(wg, xg) - project(wc, xc)).max()
+    assert d_px < 0.05, d_px
+
+    def centres(w):
+        return -np.einsum("cji,cj->ci", w[:, :3, :3], w[:, :3, 3])
+
+    src = np.concatenate([centres(wg), xg])
+    s, R, t = umeyama_alignment(src, np.concatenate([centres(wc), xc]))
+    aligned = s * src @ R.T + t
+    d_cam = np.abs(aligned[:5] - centres(wc)).max()
+    d_pts = np.abs(aligned[5:] - xc).max()
+    print(f"BA card vs CPU: gauge scale {s:.7f}, aligned camera centres "
+          f"{d_cam:.3g}, points {d_pts:.3g} apart at most")
+    assert d_cam < 1e-3, d_cam
+    assert d_pts < 1e-3, d_pts

@@ -51,7 +51,11 @@ def test_scan_covers_the_package():
             "oracle.py", "checkpoint.py", "lpips.py",
             "render_eval.py", "pseudo_views.py", "rgbd.py", "undistort.py",
             "blender.py", "colmap_db.py", "native_loader.py", "config.py",
-            "logging.py", "profiling.py", "viewer.py"} <= names
+            "logging.py", "profiling.py", "viewer.py", "features.py",
+            "sift.py", "matching.py", "retrieval.py", "pairs.py",
+            "triangulate.py", "pnp.py", "bundle_adjust.py", "incremental.py",
+            "adalam.py", "match_dense.py", "evaluate.py",
+            "sfm_init.py"} <= names
 
 
 def test_imports_without_nvcc_or_triton(tmp_path):
@@ -165,3 +169,49 @@ def test_scene_entry_points_default_to_cuda(no_cuda, tmp_path):
     args = run_scene.parse_args(["--scene", str(tmp_path), "--device",
                                  "cpu"])
     assert args.device.type == "cpu" and args.stream and args.use_depth
+
+
+def test_sfm_entry_points_default_to_cuda(no_cuda):
+    """The SfM front end takes the card unless asked for the CPU."""
+    from gs_localization_torch.pipelines.sfm_init import (
+        SfmInitConfig, build_point_model)
+    from gs_localization_torch.sfm.bundle_adjust import bundle_adjust_np
+    from gs_localization_torch.sfm.features import extract_harris_features
+    from gs_localization_torch.sfm.incremental import incremental_mapping
+    from gs_localization_torch.sfm.retrieval import top_k_retrieval
+    from gs_localization_torch.sfm.sift import extract_sift
+
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 1, (48, 64)).astype(np.float32)
+    cam = Camera.from_rt(np.eye(3), np.zeros(3), 50.0, 50.0, 64, 48,
+                         device="cpu")
+    w2c = np.tile(np.eye(4), (2, 1, 1))
+    K = np.tile(np.diag([50.0, 50.0, 1.0]), (2, 1, 1))
+    ba = (w2c, K, rng.uniform(-1, 1, (4, 3)) + [0, 0, 4],
+          np.array([0, 1, 0, 1]), np.array([0, 1, 2, 3]),
+          rng.uniform(0, 40, (4, 2)))
+    cfg = SfmInitConfig(num_keypoints=32)
+    for call in (
+            lambda **kw: build_point_model(
+                [np.stack([img] * 3, -1)] * 2, [cam, cam], cfg,
+                log_fn=lambda s: None, **kw),
+            lambda **kw: bundle_adjust_np(*ba, iters=1, cg_iters=2, **kw),
+            lambda **kw: extract_harris_features(img, num_keypoints=32,
+                                                 **kw),
+            lambda **kw: extract_sift(img, num_keypoints=32, n_octaves=2,
+                                      **kw),
+            lambda **kw: top_k_retrieval(img[:2], img[:5], k=2, **kw),
+            lambda **kw: incremental_mapping([], {}, np.eye(3), **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    build_point_model([np.stack([img] * 3, -1)] * 2, [cam, cam], cfg,
+                      log_fn=lambda s: None, device="cpu")
+    w, pts, c0, c1 = bundle_adjust_np(*ba, iters=1, cg_iters=2,
+                                      device="cpu")
+    assert w.shape == (2, 4, 4) and np.isfinite(c1)
+    f = extract_harris_features(img, num_keypoints=32, device="cpu")
+    assert f.keypoints.device.type == "cpu"
+    assert extract_sift(img, num_keypoints=32, n_octaves=2,
+                        device="cpu").descriptors.shape == (32, 128)
+    assert top_k_retrieval(img[:2], img[:5], k=2, device="cpu")[0].shape \
+        == (2, 2)

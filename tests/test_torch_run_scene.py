@@ -60,20 +60,16 @@ def _write_frame(d, i, color, depth) -> None:
         d / f"frame-{i:06d}.depth.png")
 
 
-@pytest.fixture(scope="module")
-def layout(tmp_path_factory):
-    """A raw 7-Scenes layout rendered by the port on the CPU (6 training
-    frames in seq-01, 3 test frames in seq-02, colour and 16-bit mm depth
-    PNGs, the splits, a ``sparse_dslam/0`` model of the true poses), the
-    sfm stage's two files in ``output_tpu``, and ``sparse/0`` for the
-    cambridge preset."""
-    root = tmp_path_factory.mktemp("seven") / "chess"
-    rng = np.random.default_rng(12)
+def _write_scene(root, rng, width, height):
+    """A raw 7-Scenes layout rendered by the port on the CPU (N_TRAIN
+    training frames in seq-01, N_TEST test frames in seq-02, colour and
+    16-bit mm depth PNGs, the splits, a ``sparse_dslam/0`` model of the
+    true poses). Returns (world, cameras, flat image names)."""
     world = gaussians_to_torch(random_scene(
         rng, n=250, sh_degree=1, spread=1.4, z_range=(2.5, 5.0),
         scale_range=(-3.4, -2.4)))
     cfg = RasterizerConfig(max_pairs=1 << 14, pallas_chunk=64)
-    base = camera_to_torch(make_camera(W, H, fov=1.0))
+    base = camera_to_torch(make_camera(width, height, fov=1.0))
     cams, names, images = [], [], {}
     for i in range(N_TRAIN + N_TEST):
         tau = np.concatenate([0.05 * rng.standard_normal(3),
@@ -94,10 +90,21 @@ def layout(tmp_path_factory):
     (root / "TrainSplit.txt").write_text("sequence1\n")
     (root / "TestSplit.txt").write_text("sequence2\n")
     c0 = cams[0]
-    colmap_cams = {1: ColmapCamera(1, "PINHOLE", W, H, np.array(
+    colmap_cams = {1: ColmapCamera(1, "PINHOLE", width, height, np.array(
         [float(c0.fx), float(c0.fy), float(c0.cx), float(c0.cy)]))}
     write_colmap_model_text(str(root / "sparse_dslam" / "0"), colmap_cams,
                             images, {})
+    return world, cams, names
+
+
+@pytest.fixture(scope="module")
+def layout(tmp_path_factory):
+    """The 7-Scenes layout of ``_write_scene`` at 64x48, the sfm stage's
+    two files in ``output_tpu`` (the world's means and colours, the test
+    poses moved by a few cm), and ``sparse/0`` for the cambridge preset."""
+    root = tmp_path_factory.mktemp("seven") / "chess"
+    rng = np.random.default_rng(12)
+    world, cams, names = _write_scene(root, rng, W, H)
     shutil.copytree(root / "sparse_dslam" / "0", root / "sparse" / "0")
     out = root / "output_tpu"
     out.mkdir()
@@ -116,6 +123,17 @@ def layout(tmp_path_factory):
     trun.main(["--scene", str(root), "--stage", "prepare", "--device",
                "cpu"])
     return root, names
+
+
+@pytest.fixture(scope="module")
+def sift_layout(tmp_path_factory):
+    """The layout of ``_write_scene`` at 96x72, prepared: SIFT's third
+    octave (24x18) must hold its 341 candidates per octave."""
+    root = tmp_path_factory.mktemp("seven_sift") / "chess"
+    _write_scene(root, np.random.default_rng(13), 96, 72)
+    trun.main(["--scene", str(root), "--stage", "prepare", "--device",
+               "cpu"])
+    return root
 
 
 class _Recorder:
@@ -262,15 +280,57 @@ def test_stage_localize_hands_over_what_jax_does(layout, monkeypatch,
     assert list(back) == names[N_TRAIN:]
 
 
+@pytest.mark.parametrize("extractor", ["harris", "sift"])
+def test_stage_sfm_writes_what_jax_does(layout, sift_layout, monkeypatch,
+                                        tmp_path, capsys, extractor):
+    """The sfm stage of both runners on the same files: the same printed
+    lines, the same query names and methods, init poses within 1e-5 and
+    the saved point cloud within 1e-4."""
+    root = layout[0] if extractor == "harris" else sift_layout
+    monkeypatch.setattr(jprof, "enable_persistent_compile_cache",
+                        lambda *a, **k: None)
+    argv = ["--scene", str(root), "--stage", "sfm", "--extractor",
+            extractor]
+    jrun.main(argv + ["--out", str(tmp_path / "jax")])
+    log_j = capsys.readouterr().out
+    done = trun.main(argv + ["--out", str(tmp_path / "port"), "--device",
+                             "cpu"])
+    log_t = capsys.readouterr().out
+    assert log_t.replace("/port/", "/jax/") == log_j
+    assert "pnp" in log_t
+    pj = read_pose_results(str(tmp_path / "jax" / "results_dense.txt"))
+    pt = read_pose_results(str(tmp_path / "port" / "results_dense.txt"))
+    assert list(pt) == list(pj) == [c.name for c in trun._load_scene(
+        trun.parse_args(argv + ["--device", "cpu"])).test_cameras]
+    for name in pj:
+        for a, b in zip(pt[name], pj[name]):
+            np.testing.assert_allclose(a, b, atol=1e-5)
+    cj = np.load(tmp_path / "jax" / "sfm_points.npz")
+    ct = np.load(tmp_path / "port" / "sfm_points.npz")
+    assert len(ct["points"]) == len(cj["points"]) > 0
+    np.testing.assert_allclose(ct["points"], cj["points"], atol=1e-4)
+    np.testing.assert_allclose(ct["colors"], cj["colors"], atol=1e-6)
+    mapped, poses = done["sfm"]
+    assert int(mapped.valid.sum()) == len(ct["points"])
+    assert list(poses) == list(pt)
+
+
 def test_sfm_stage_and_weights_are_refused(layout, tmp_path):
+    """A checkpoint that would light up a network that is not ported
+    raises at the stage that would use it; an empty --weights-dir leaves
+    the classical front end."""
     root, _ = layout
-    with pytest.raises(NotImplementedError, match="item 13"):
-        trun.main(["--scene", str(root), "--stage", "sfm", "--device",
-                   "cpu"])
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    done = trun.main(["--scene", str(root), "--stage", "sfm", "--device",
+                      "cpu", "--weights-dir", str(empty), "--out",
+                      str(tmp_path / "out")])
+    assert len(done["sfm"][1]) == N_TEST
     (tmp_path / "midas_v21-f6b98070.pt").write_bytes(b"")
     (tmp_path / "superpoint_v1.pth").write_bytes(b"")
     for stage, what in (("train", "depth prior"), ("localize",
-                                                   "SuperPoint")):
+                                                   "SuperPoint"),
+                        ("sfm", "SuperPoint / SuperGlue / NetVLAD")):
         with pytest.raises(NotImplementedError, match=what):
             trun.main(["--scene", str(root), "--stage", stage, "--device",
                        "cpu", "--weights-dir", str(tmp_path)])
@@ -279,7 +339,9 @@ def test_sfm_stage_and_weights_are_refused(layout, tmp_path):
 def test_cli_end_to_end_on_the_cpu(layout, monkeypatch, capsys):
     """prepare -> train (stream layout, 10 iterations) -> localize (5
     iterations a query) through ``main``, on the CPU: the files of the
-    runner's contract, poses that read back, and no kernel launch."""
+    runner's contract, poses that read back, and no kernel launch. Then
+    ``--stage all`` (prepare -> sfm -> train -> localize) into an empty
+    ``--out``: the sfm stage writes the files the later stages read."""
     root, names = layout
     out = root / "e2e"
     out.mkdir()
@@ -310,4 +372,18 @@ def test_cli_end_to_end_on_the_cpu(layout, monkeypatch, capsys):
     with open(out / "metrics.json") as f:
         assert json.load(f) == metrics
     assert metrics["median_trans_m"] < 0.2
+    assert all(v == 0 for v in gsl.LAUNCHES.values())
+
+    out_all = root / "e2e_all"
+    common[3] = str(out_all)
+    done = trun.main(common + ["--stage", "all", "--iterations", "10"])
+    log = capsys.readouterr().out
+    assert list(done) == ["prepare", "sfm", "train", "localize"]
+    mapped, poses = done["sfm"]
+    n_pts = int(mapped.valid.sum())
+    assert n_pts > 0 and list(poses) == names[N_TRAIN:]
+    assert f"initialized from {n_pts} sfm points" in log
+    assert list(read_pose_results(str(out_all / "results.txt"))) == \
+        names[N_TRAIN:]
+    assert (out_all / "metrics.json").exists()
     assert all(v == 0 for v in gsl.LAUNCHES.values())
