@@ -93,7 +93,26 @@
    poses); Harris and SIFT ms per 640x480 image, SIFT card vs CPU on one
    view; ``incremental_mapping`` of the synthetic scene of
    ``tests/test_incremental_sfm.py`` card vs CPU; ms per
-   ``bundle_adjust_np`` call.
+   ``bundle_adjust_np`` call;
+15. the learned front end: random-weight checkpoints from a seed at the
+   official shapes, names and formats (``superpoint_v1.pth``,
+   ``superglue_outdoor.pth`` with its residual branches at 0 and a sharp
+   final projection so that pairs match, ``Pitts30K_struct.mat``,
+   ``dpt_hybrid-midas-501f0c75.pt``, and ``midas_v21-f6b98070.pt`` in a
+   folder of its own), read back through ``weights.load`` on the card and
+   on the CPU; each network at full width on the card against the CPU
+   (SuperPoint at 640x480 with superpoint_aachen's 4,096 keypoints and NMS
+   3, SuperGlue on two 1,024-keypoint sets at sinkhorn 5 and 50, NetVLAD
+   at 640x480, DPT_Hybrid's and MiDaS's ``estimate_depth`` at 480x640) and
+   its median ms per call; one ``run_scene.main`` call ``--stage all
+   --iterations 100 --weights-dir`` on a fresh layout of step 11's views:
+   every "weights: ... enabled" line, an init pose and a method for every
+   test image, the few-shot branch with one DPT call per pseudo step, the
+   exact K1/K2 launches (K1 = steps + 2 x pseudo steps + held-out renders
+   + localize iterations, K2 = steps + pseudo steps + localize
+   iterations, no K3/K4), a finite metrics.json, the sfm stage's time
+   split; then the sfm stage again on the CPU, held against the card
+   (keypoints, points, methods, init poses).
 
 Prints one JSON line of kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -134,6 +153,8 @@ SCENE_ITERS = 300
 # few-shot training: a pseudo view every FS_INTERVAL iterations strictly
 # inside FS_WINDOW, 14 of the N_TRAIN iterations
 FS_INTERVAL, FS_WINDOW = 20, (10, 290)
+# the learned front end's --stage all run: its train iterations
+LEARNED_ITERS = 100
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_FP32 = 67e12     # FLOP/s on the CUDA cores, a fused multiply-add as 2
@@ -1239,6 +1260,321 @@ def all_stages(g, cam, cfg, dev) -> dict:
         shutil.rmtree(scene_dir, ignore_errors=True)
 
 
+def keypoint_share(kp_ref, valid_ref, kp) -> float:
+    """The share of the reference's valid keypoints (pixels) that ``kp``
+    holds too, in any slot: a keypoint that one device admits and the
+    other does not (a near-tie in the NMS or at the top-k cut) moves every
+    later slot, so slots are not compared one by one."""
+    ref = {tuple(p) for p in np.asarray(kp_ref)[valid_ref]}
+    return len(ref & {tuple(p) for p in np.asarray(kp)}) / max(len(ref), 1)
+
+
+def sharp_superglue(path: Path, seed: int) -> None:
+    """superglue_outdoor.pth at the official shapes from a seed: PyTorch's
+    default init with the residual branches (the keypoint encoder's and
+    each layer's last conv) at 0 and final_proj = 256 I, so that SuperGlue
+    is a sharp optimal transport of the SuperPoint descriptors and image
+    pairs match (at random weights no pair keeps 8 matches)."""
+    import torch
+    from gs_localization_torch.sfm.superglue import SuperGlueNet
+
+    torch.manual_seed(seed)
+    sg = SuperGlueNet("cpu")
+    with torch.no_grad():
+        for conv in [sg.kenc.encoder[-1]] + [l.mlp[-1]
+                                             for l in sg.gnn.layers]:
+            conv.weight.zero_()
+            conv.bias.zero_()
+        sg.final_proj.weight.copy_(256.0 * torch.eye(256)[:, :, None])
+        sg.final_proj.bias.zero_()
+    torch.save(sg.state_dict(), path)
+
+
+def learned_front_end(g, cam, cfg, dev) -> dict:
+    """The learned front end on the card (see the module docstring, step
+    15). Returns the launch counts of the ``--stage all --weights-dir``
+    call."""
+    import torch
+    import gs_localization_torch as gsl
+    from gs_localization_torch.core.camera import quat_to_rotmat
+    from gs_localization_torch.data.scene import load_image
+    from gs_localization_torch.ops import dpt as dpt_lib
+    from gs_localization_torch.ops import midas as midas_lib
+    from gs_localization_torch.pipelines import localize as ploc
+    from gs_localization_torch.pipelines import run_scene
+    from gs_localization_torch.pipelines.sfm_init import SfmInitConfig
+    from gs_localization_torch.sfm import weights as wlib
+    from gs_localization_torch.sfm.evaluate import pose_errors
+    from gs_localization_torch.sfm.features import rgb_to_gray
+    from gs_localization_torch.sfm.io import read_pose_results
+    from gs_localization_torch.sfm.netvlad import netvlad_descriptor
+    from gs_localization_torch.sfm.superglue import superglue_match
+    from gs_localization_torch.sfm.superpoint import extract_superpoint
+
+    cpu = torch.device("cpu")
+    smi = smi_line()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_learned_",
+                                 dir=ROOT / "build"))
+    batch = ploc.refine_poses_batch
+    estimate = dpt_lib.estimate_depth
+    try:
+        # the checkpoints: W holds the reference pipeline's four, the
+        # MiDaS fallback has a folder of its own
+        wdir, mdir = work / "weights", work / "weights_midas"
+        wdir.mkdir()
+        mdir.mkdir()
+        t0 = time.perf_counter()
+        for name in ("superpoint", "netvlad", "dpt_hybrid"):
+            wlib.write_random(name, str(wdir), seed=0)
+        sharp_superglue(wdir / wlib.MANIFEST["superglue_outdoor"].file, 0)
+        wlib.write_random("midas_v21", str(mdir), seed=0)
+        print(f"[learned] random checkpoints written in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              f"{sorted(p.name for p in wdir.iterdir())}, "
+              f"{sorted(p.name for p in mdir.iterdir())}")
+        nets = {}
+        for name, d in (("superpoint", wdir), ("superglue_outdoor", wdir),
+                        ("netvlad", wdir), ("dpt_hybrid", wdir),
+                        ("midas_v21", mdir)):
+            path = str(d / wlib.MANIFEST[name].file)
+            nets[name] = (wlib.load(name, path, device=dev),
+                          wlib.load(name, path, device=cpu))
+            print(f"[learned] {name}: {wlib.n_params(nets[name][0]):,} "
+                  f"parameters")
+
+        # the layout: the scene phase's views, no sfm files
+        root = work / "chess"
+        rng_s = np.random.default_rng(13)
+        views = [cam] + [perturbed(cam, rng_s, 0.03, 0.1) for _ in
+                         range(N_SCENE_TRAIN + N_SCENE_TEST - 1)]
+        true_w2c = write_seven_scenes(root, g, views, cfg)
+        test_names = list(true_w2c)[N_SCENE_TRAIN:]
+        rgb = [load_image(str(root / "seq-01" / f"frame-{k:06d}.color.png"))
+               for k in (0, 1)]
+
+        # 1. each network at full width, the card against the CPU
+        ms = {}
+        sp_g, sp_c = nets["superpoint"]
+        gray = [rgb_to_gray(torch.tensor(im)) for im in rgb]
+        fc = extract_superpoint(sp_c, gray[0], 4096, 3)
+        fg = extract_superpoint(sp_g, gray[0].to(dev), 4096, 3)
+        valid = fc.scores.numpy() > 0
+        share = keypoint_share(fc.keypoints.numpy(), valid,
+                               fg.keypoints.cpu().numpy())
+        # the score maps themselves, pixel by pixel (TF32 would move them
+        # by ~1e-2 at these peaked logits)
+        with torch.no_grad():
+            d_sc = float((sp_g(gray[0].to(dev))[0].cpu()
+                          - sp_c(gray[0])[0]).abs().max())
+        ms["SuperPoint"] = time_ms(
+            lambda: extract_superpoint(sp_g, gray[0].to(dev), 4096, 3), 10)
+        print(f"[learned] SuperPoint 640x480 (superpoint_aachen: 4,096 "
+              f"keypoints, NMS 3): {int(valid.sum())} keypoints; card vs "
+              f"CPU: {share:.4f} of the CPU's keypoints also on the card, "
+              f"score map max|d| {d_sc:.3e} (tol 1e-5)")
+        check(int((fg.scores > 0).sum()) == int(valid.sum()) > 1000
+              and share >= 0.99 and d_sc <= 1e-5,
+              "SuperPoint differs (card vs CPU)")
+
+        sg_g, sg_c = nets["superglue_outdoor"]
+        k = SfmInitConfig().num_keypoints
+        feats = [extract_superpoint(sp_c, gr, k, 3) for gr in gray]
+        args_c = (*feats[0][:3], *feats[1][:3], W, H, W, H)
+        args_g = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                       for a in args_c)
+        for iters in (5, 50):
+            rc = superglue_match(sg_c, *args_c, sinkhorn_iters=iters)
+            rg = superglue_match(sg_g, *args_g, sinkhorn_iters=iters)
+            m_c, m_g = rc.matches0.numpy(), rg.matches0.cpu().numpy()
+            agree = float(np.mean(m_c == m_g))
+            d_ms = float(np.abs(rc.matching_scores0.numpy()
+                                - rg.matching_scores0.cpu().numpy()).max())
+            ms[f"SuperGlue sinkhorn {iters}"] = time_ms(
+                lambda: superglue_match(sg_g, *args_g,
+                                        sinkhorn_iters=iters), 10)
+            print(f"[learned] SuperGlue {k} x {k} keypoints, sinkhorn "
+                  f"{iters}: {int((m_c >= 0).sum())} matches on the CPU; "
+                  f"card vs CPU matches0 equal on {agree:.4f} of the rows, "
+                  f"matching scores max|d| {d_ms:.3e}")
+            check(agree >= 0.99 and (m_c >= 0).sum() > 0,
+                  f"SuperGlue sinkhorn {iters} differs (card vs CPU)")
+
+        nv_g, nv_c = nets["netvlad"]
+        img_g = torch.tensor(rgb[0], device=dev)
+        dc = netvlad_descriptor(nv_c, torch.tensor(rgb[0])).numpy()
+        dg = netvlad_descriptor(nv_g, img_g).cpu().numpy()
+        d_nv = float(np.abs(dg - dc).max())
+        ms["NetVLAD"] = time_ms(lambda: netvlad_descriptor(nv_g, img_g), 10)
+        print(f"[learned] NetVLAD 640x480: card vs CPU max|d| {d_nv:.3e} "
+              f"(rtol 2e-3, atol 2e-5)")
+        check(np.allclose(dg, dc, rtol=2e-3, atol=2e-5),
+              "NetVLAD differs (card vs CPU)")
+
+        for label, mod, name in (("DPT_Hybrid", dpt_lib, "dpt_hybrid"),
+                                 ("MiDaS v2.1", midas_lib, "midas_v21")):
+            net_g, net_c = nets[name]
+            ec = mod.estimate_depth(net_c, torch.tensor(rgb[0]), H, W)
+            eg = mod.estimate_depth(net_g, img_g, H, W)
+            scale = float(ec.abs().max())
+            d_e = float((eg.cpu() - ec).abs().max()) / scale
+            ms[f"{label} estimate_depth"] = time_ms(
+                lambda: mod.estimate_depth(net_g, img_g, H, W), 10)
+            print(f"[learned] {label} estimate_depth 480x640 (the net at "
+                  f"384x512): card vs CPU max|d| {d_e:.3e} of the output's "
+                  f"scale {scale:.4g} (tol 5e-4)")
+            check(bool(torch.isfinite(eg).all()) and d_e <= 5e-4,
+                  f"{label} differs (card vs CPU)")
+        print(f"[learned] ms per call on the card (median of 10 after a "
+              f"warm-up; {smi}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+        del nets
+
+        # 2. run_scene --stage all --weights-dir W, the networks on the card
+        loc_iters, est_calls = [], []
+
+        def counted(*a, **kw):
+            res = batch(*a, **kw)
+            loc_iters.extend(res.num_iters)
+            return res
+
+        def counted_estimate(*a, **kw):
+            est_calls.append(1)
+            return estimate(*a, **kw)
+
+        ploc.refine_poses_batch = counted
+        dpt_lib.estimate_depth = counted_estimate
+        out = root / "output_tpu"
+        tee = Tee(sys.stdout, sync=torch.cuda.synchronize)
+        torch.cuda.synchronize()
+        gsl.reset_launches()
+        with contextlib.redirect_stdout(tee):
+            done = run_scene.main(["--scene", str(root), "--preset",
+                                   "seven_scenes", "--stage", "all",
+                                   "--iterations", str(LEARNED_ITERS),
+                                   "--weights-dir", str(wdir)])
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = dict(gsl.LAUNCHES)
+        ploc.refine_poses_batch = batch
+        dpt_lib.estimate_depth = estimate
+        log = tee.text()
+        for line in ("superpoint extractor enabled",
+                     "superglue matcher enabled (sinkhorn 5)",
+                     "netvlad retrieval enabled",
+                     "dpt_hybrid depth prior enabled",
+                     "superpoint keypoint masks enabled"):
+            check(f"weights: {line}" in log, f"no 'weights: {line}' line")
+        methods = query_methods(log)
+        poses_file = read_pose_results(str(out / "results_dense.txt"))
+        check(sorted(poses_file) == sorted(test_names)
+              and sorted(methods) == sorted(test_names),
+              f"init poses / methods missing: {methods}")
+        # the few-shot branch: 8 train views < 200, so pseudo views, each
+        # with one DPT call; the pseudo window scaled to LEARNED_ITERS
+        frac = LEARNED_ITERS / 30_000
+        window = (max(1, int(2_000 * frac)), max(2, int(29_000 * frac)))
+        n_pseudo = len([it for it in range(1, LEARNED_ITERS + 1)
+                        if it % 20 == 0 and window[0] < it < window[1]])
+        check("few-shot: generated" in log and n_pseudo > 0
+              and len(est_calls) == n_pseudo,
+              f"{len(est_calls)} DPT calls for {n_pseudo} pseudo steps")
+        n_held = min(8, N_SCENE_TEST)
+        n_loc = int(sum(loc_iters))
+        want = {"stream_fwd": LEARNED_ITERS + 2 * n_pseudo + n_held + n_loc,
+                "stream_bwd": LEARNED_ITERS + n_pseudo + n_loc,
+                "pregathered_fwd": 0, "pregathered_bwd": 0}
+        print(f"[learned] launches {launches}; expected {want} "
+              f"({LEARNED_ITERS} steps, {n_pseudo} pseudo steps in "
+              f"{window}, {n_held} held-out renders, {n_loc} localize "
+              f"iterations)")
+        check(launches == want and n_loc > 0,
+              f"--stage all --weights-dir launches {launches} != {want}")
+        on_disk = json.loads((out / "metrics.json").read_text())
+        check(all(np.isfinite(v) for v in on_disk.values()),
+              f"non-finite metrics {on_disk}")
+        mapped, poses = done["sfm"]
+        n_pts = int(mapped.valid.sum())
+        t_sfm = tee.time_of("=== stage: sfm")
+        t_ext = tee.time_of("extracted features for")
+        t_match = tee.time_of("matched ")
+        t_tri = tee.time_of("depth-corrected;")
+        t_pnp = max(tee.time_of(f"{n}: ") for n in test_names)
+        t_train = tee.time_of("=== stage: train")
+        t_loc = tee.time_of("=== stage: localize")
+        print(f"[learned] sfm stage {t_train - t_sfm:.3f} s: loading and "
+              f"extraction {t_ext - t_sfm:.3f} s (checkpoints, 8 NetVLAD "
+              f"descriptors, retrieval, 8 SuperPoint extractions), matching "
+              f"{t_match - t_ext:.3f} s (SuperGlue), triangulation "
+              f"{t_tri - t_match:.3f} s, PnP {t_pnp - t_tri:.3f} s, writing "
+              f"{t_train - t_pnp:.3f} s; {n_pts} sfm points; methods "
+              f"{methods} ({smi})")
+        print(f"[learned] train stage {t_loc - t_train:.3f} s "
+              f"({(t_loc - t_train) * 1e3 / LEARNED_ITERS:.3f} ms/step, the "
+              f"DPT load and {n_pseudo} pseudo steps included); localize "
+              f"stage {t_end - t_loc:.3f} s over {n_loc} iterations; "
+              f"metrics.json {on_disk}")
+        for name in test_names:
+            q, t = poses[name]
+            gt_w = true_w2c[name]
+            e = pose_errors(quat_to_rotmat(torch.tensor(q)).numpy(), t,
+                            gt_w[:3, :3], gt_w[:3, 3])
+            print(f"[learned] {name}: {methods[name]}, initial error "
+                  f"{e[0] * 100:.3f} cm / {e[1]:.4f} deg")
+
+        # 3. the sfm stage on the card machine's CPU, held against the card
+        tee_c = Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee_c):
+            done_c = run_scene.main(["--scene", str(root), "--stage", "sfm",
+                                     "--device", "cpu", "--weights-dir",
+                                     str(wdir), "--out",
+                                     str(work / "out_cpu")])
+        t_cpu = time.perf_counter() - t0
+        mapped_c, poses_c = done_c["sfm"]
+        shares = [keypoint_share(f_c.keypoints.numpy(),
+                                 f_c.scores.numpy() > 0,
+                                 f_g.keypoints.cpu().numpy())
+                  for f_g, f_c in zip(mapped.features, mapped_c.features)]
+        slots = [float(np.mean(np.all(f_g.keypoints.cpu().numpy()
+                                      == f_c.keypoints.numpy(), axis=1)))
+                 for f_g, f_c in zip(mapped.features, mapped_c.features)]
+        n_c = int(mapped_c.valid.sum())
+        methods_c = query_methods(tee_c.text())
+        pose_d = [pose_errors(quat_to_rotmat(torch.tensor(poses[n][0])
+                                             ).numpy(), poses[n][1],
+                              quat_to_rotmat(torch.tensor(poses_c[n][0])
+                                             ).numpy(), poses_c[n][1])
+                  for n in test_names]
+        print(f"[learned] sfm card vs CPU ({t_cpu:.1f} s on the CPU): "
+              f"the CPU's keypoints also on the card {min(shares):.4f}, in "
+              f"the same slot {min(slots):.4f} (worst image); valid points "
+              f"{n_pts} vs {n_c}; methods "
+              f"{methods == methods_c}; init poses apart at most "
+              f"{max(d[0] for d in pose_d) * 100:.4f} cm / "
+              f"{max(d[1] for d in pose_d):.5f} deg")
+        inl = [{n: int(k) for n, k in re.findall(
+            r"^(\S+\.png): \w+ \((\d+) inl\)$", t.text(), re.MULTILINE)}
+            for t in (tee, tee_c)]
+        print(f"[learned] PnP inliers card {inl[0]}, CPU {inl[1]}")
+        check(min(shares) >= 0.99, "keypoints differ (card vs CPU)")
+        check(abs(n_pts - n_c) <= 0.02 * n_c, "sfm points differ")
+        check(methods == methods_c, f"methods {methods} != {methods_c}")
+        check(all(abs(inl[0][n] - inl[1][n]) <= 0.05 * inl[1][n]
+                  for n in test_names), "PnP inliers differ by over 5 %")
+        # PnP-RANSAC draws its samples by list index from a fixed seed, so
+        # a match flipped by a near-tie (2 of 22,366 in the first card
+        # run) moves the pose within the RANSAC's noise: 12 px of inlier
+        # slack is ~11 cm at 5 m, and other seeds move these init poses by
+        # 0.4-7 cm on the same data (a CPU run at 512 keypoints)
+        check(all(d[0] <= 0.05 and d[1] <= 1.0 for d in pose_d),
+              "init poses differ by more than 5 cm / 1 deg (card vs CPU)")
+        return launches
+    finally:
+        ploc.refine_poses_batch = batch
+        dpt_lib.estimate_depth = estimate
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def touched_case(seed: int, n: int, spread: float, device):
     """The scenes of ``tests/test_torch_cuda.py``'s n_touched test (its
     ``_scene`` draws at SH degree 2) and its 96x64 camera."""
@@ -2221,6 +2557,10 @@ def main() -> None:
     with phase("scene runner, all stages (sfm on the card)"):
         launches_all = all_stages(g, cam, cfg, dev)
 
+    # ---- the learned front end: networks on the card, --weights-dir --------
+    with phase("learned front end (networks on the card)"):
+        launches_learned = learned_front_end(g, cam, cfg, dev)
+
     # ---- timing at the bench shapes -----------------------------------------
     with phase("timing"):
         clocks = "clocks.sm,clocks.max.sm"
@@ -2338,16 +2678,18 @@ def main() -> None:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None}
 
-    # K1/K2 run on five paths: localization, few-shot training, the viewer,
-    # the scene runner's stream training and localization, and its four
-    # stages in one call (each counted from 0 over its own run)
+    # K1/K2 run on six paths: localization, few-shot training, the viewer,
+    # the scene runner's stream training and localization, its four stages
+    # in one call, and the four stages with the learned front end (each
+    # counted from 0 over its own run)
     k12_launches = {k: launches_loc[k] + launches_fs[k] + launches_view[k]
                     + launches_scene_train[k] + launches_scene_loc[k]
-                    + launches_all[k] for k in ("stream_fwd", "stream_bwd")}
+                    + launches_all[k] + launches_learned[k]
+                    for k in ("stream_fwd", "stream_bwd")}
     print(f"K1/K2 launches: localization {launches_loc}, few-shot training "
           f"{launches_fs}, viewer {launches_view}, scene runner train "
           f"{launches_scene_train}, localize {launches_scene_loc}, all "
-          f"stages {launches_all}")
+          f"stages {launches_all}, learned front end {launches_learned}")
     kernels = [
         entry("stream_fwd", "stream_blend.cu",
               "gs_localization_tpu/raster/stream_blend.py:85",

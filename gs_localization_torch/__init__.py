@@ -11,13 +11,16 @@ is found by path:
                   scenes (COLMAP, 7-Scenes, Blender), RGB-D point clouds,
                   the native threaded image loader.
 - ``ops``       : image-gradient tracking masks, SSIM, LPIPS, k-NN
-                  distances, undistortion.
+                  distances, undistortion, JAX's image resize, the
+                  DPT_Hybrid and MiDaS depth priors.
 - ``mapping``   : map training: losses, per-group Adam, densification,
                   few-shot pseudo views.
 - ``loc``       : gradient-descent pose refinement.
-- ``sfm``       : the classical SfM front end (Harris / SIFT features,
+- ``sfm``       : the SfM front end: classical (Harris / SIFT features,
                   matching, retrieval, triangulation, PnP, bundle
-                  adjustment, incremental mapping), pose-error metrics,
+                  adjustment, incremental mapping) and learned
+                  (SuperPoint, SuperGlue, NetVLAD; the checkpoint manifest
+                  and hloc's conf registry), pose-error metrics,
                   pose-result files.
 - ``pipelines`` : query localization, map training, SfM initialization,
                   the scene runner.
@@ -27,11 +30,14 @@ Device policy: entry points that create tensors take ``device="cuda"`` by
 default and raise when CUDA is absent; pass ``device="cpu"`` to run the plain
 PyTorch versions. Everything downstream follows the device of its tensors: a
 CPU tensor takes the plain version of a kernel, a CUDA tensor launches the
-kernel or raises. Nothing falls back silently. Everything is float32.
+kernel or raises. Nothing falls back silently. Everything is float32: the
+networks hold their convolutions and matmuls to float32 (no TF32) with
+``float32_exact``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
@@ -77,3 +83,23 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def float32_exact():
+    """Run cuDNN convolutions and cuBLAS matmuls in float32 inside the block.
+
+    A float32 ``conv2d`` on the card runs in TF32 (a 10-bit mantissa)
+    while ``torch.backends.cudnn.allow_tf32`` is True, PyTorch's default,
+    so a network's output would depend on the caller's process flags. The
+    networks hold float32 themselves with this block, and restore the
+    flags after it."""
+    conv = torch.backends.cudnn.allow_tf32
+    mm = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm

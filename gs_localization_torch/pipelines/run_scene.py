@@ -6,20 +6,21 @@
 Stages (the JAX package's ``run_scene``, same arguments, defaults and
 files):
   prepare   : split layout (7-Scenes, Cambridge, LLFF / Mip-360)
-  sfm       : the classical front end (Harris or SIFT features, mutual-NN
-              matching, tiny-image retrieval): point model of the train
-              images + PnP init poses -> out/results_dense.txt,
-              out/sfm_points.npz
+  sfm       : point model of the train images + PnP init poses ->
+              out/results_dense.txt, out/sfm_points.npz
   train     : 3DGS map -> out/gs_map/iteration_N/point_cloud.ply
   localize  : pose refinement + median/recall metrics -> out/results.txt,
               out/metrics.json
 
 ``--device`` (default ``cuda``) picks the card or, with ``cpu``, the plain
-PyTorch versions of the kernels. ``--weights-dir`` raises where it would
-light up a network that is not ported (SuperPoint, SuperGlue and NetVLAD in
-the sfm stage, SuperPoint keypoints in the localize stage, the MiDaS / DPT
-depth prior in the train stage); checkpoints that are absent leave the
-classical path. ``main`` returns each stage's result by stage name.
+PyTorch versions of the kernels. ``--weights-dir`` turns on the reference's
+learned front end from the official checkpoints it holds (WEIGHTS.md):
+SuperPoint features, SuperGlue matching (sinkhorn 5) and NetVLAD retrieval
+in the sfm stage, the DPT_Hybrid (else MiDaS v2.1) depth prior of few-shot
+training, and SuperPoint keypoint boxes in the localize stage's masks; the
+networks run on ``--device``. Absent files leave the classical path
+(Harris or SIFT features, mutual-NN matching, tiny-image retrieval, no
+depth prior). ``main`` returns each stage's result by stage name.
 """
 
 from __future__ import annotations
@@ -31,11 +32,6 @@ import os
 import numpy as np
 
 from .. import resolve_device
-
-# the checkpoints whose presence lights up a network in the JAX runner
-_SUPERPOINT = "superpoint_v1.pth"
-_SFM_NETWORKS = (_SUPERPOINT, "superglue_outdoor.pth", "Pitts30K_struct.mat")
-_DEPTH_PRIORS = ("dpt_hybrid-midas-501f0c75.pt", "midas_v21-f6b98070.pt")
 
 
 def stage_prepare(args):
@@ -90,21 +86,70 @@ def _load_scene(args):
     )
 
 
-def _build_frontend(args, cfg):
-    """The sfm stage's extractor from ``--extractor``: None for Harris (the
-    pipeline's default), else DoG + rootSIFT. A checkpoint in
-    ``--weights-dir`` that would light up SuperPoint, SuperGlue or NetVLAD
-    raises; absent files leave the classical front end."""
-    _refuse_weights(args, _SFM_NETWORKS,
-                    "the learned SfM front end (SuperPoint / SuperGlue / "
-                    "NetVLAD)")
-    if args.extractor != "sift":
-        return None
-    from ..sfm.features import rgb_to_gray
-    from ..sfm.sift import extract_sift
+def _weight_path(args, name: str) -> str:
+    from ..sfm import weights as weights_lib
 
-    return lambda img: extract_sift(  # noqa: E731
-        rgb_to_gray(img), num_keypoints=cfg.num_keypoints)
+    return os.path.join(args.weights_dir, weights_lib.MANIFEST[name].file)
+
+
+def _load_superpoint(args):
+    """The SuperPoint net from ``--weights-dir`` on ``--device``, or None
+    when its checkpoint is absent."""
+    from ..sfm import weights as weights_lib
+
+    path = _weight_path(args, "superpoint")
+    if not os.path.exists(path):
+        return None
+    return weights_lib.load("superpoint", path, device=args.device)
+
+
+def _build_frontend(args, cfg, frame_size=None):
+    """(extractor, sparse_matcher, global_desc_fn) from the CLI flags.
+
+    ``frame_size`` (w, h) is needed by learned matchers (keypoint
+    normalisation): the mapping images' size; scenes mixing resolutions
+    should resize in prepare. ``--weights-dir`` turns on SuperPoint (and,
+    with it, SuperGlue at sinkhorn 5) and NetVLAD from the official
+    checkpoints it holds; absent files leave the classical front end (None:
+    the pipeline's Harris, mutual-NN matching, tiny-image retrieval; or
+    SIFT with ``--extractor sift``)."""
+    extractor = None
+    if args.extractor == "sift":
+        from ..sfm.features import rgb_to_gray
+        from ..sfm.sift import extract_sift
+
+        extractor = lambda img: extract_sift(  # noqa: E731
+            rgb_to_gray(img), num_keypoints=cfg.num_keypoints)
+    sparse_matcher = None
+    global_desc_fn = None
+    if args.weights_dir:
+        from ..sfm import weights as weights_lib
+        from ..sfm.registry import (get_extractor, get_global_descriptor,
+                                    get_matcher)
+
+        sp = _load_superpoint(args)
+        if sp is not None:
+            extractor = get_extractor("superpoint_aachen", params=sp,
+                                      num_keypoints=cfg.num_keypoints)
+            print("weights: superpoint extractor enabled")
+            sg_path = _weight_path(args, "superglue_outdoor")
+            if os.path.exists(sg_path):
+                if frame_size is None:
+                    raise ValueError(
+                        "superglue matching needs frame_size=(w, h)")
+                sg = weights_lib.load("superglue_outdoor", sg_path,
+                                      device=args.device)
+                matcher = get_matcher("superglue-fast", params=sg)
+
+                def sparse_matcher(f0, f1, _m=matcher, _s=frame_size):
+                    return _m(f0, f1, _s, _s)
+                print("weights: superglue matcher enabled (sinkhorn 5)")
+        nv_path = _weight_path(args, "netvlad")
+        if os.path.exists(nv_path):
+            nv = weights_lib.load("netvlad", nv_path, device=args.device)
+            global_desc_fn = get_global_descriptor("netvlad", params=nv)
+            print("weights: netvlad retrieval enabled")
+    return extractor, sparse_matcher, global_desc_fn
 
 
 def stage_sfm(args):
@@ -114,8 +159,9 @@ def stage_sfm(args):
 
     scene = _load_scene(args)
     cfg = SfmInitConfig()
-    extractor = _build_frontend(args, cfg)
     imgs = [load_image(c.image_path) for c in scene.train_cameras]
+    extractor, sparse_matcher, global_desc_fn = _build_frontend(
+        args, cfg, frame_size=(imgs[0].shape[1], imgs[0].shape[0]))
     deps = None
     if args.use_depth:
         deps = [load_depth(c.depth_path) if c.depth_path and
@@ -124,7 +170,10 @@ def stage_sfm(args):
                 for i, c in enumerate(scene.train_cameras)]
     train_cams = [c.camera for c in scene.train_cameras]
     mapped = build_point_model(imgs, train_cams, cfg, depth_maps=deps,
-                               extractor=extractor, device=args.device)
+                               extractor=extractor,
+                               sparse_matcher=sparse_matcher,
+                               global_desc_fn=global_desc_fn,
+                               device=args.device)
     poses = {}
     for q in scene.test_cameras:
         cam = q.camera
@@ -132,7 +181,8 @@ def stage_sfm(args):
                       [0, float(cam.fy), float(cam.cy)], [0, 0, 1.0]])
         qvec, tvec, info = localize_query_pnp(
             load_image(q.image_path), K, mapped, train_cams, cfg,
-            extractor=extractor, device=args.device)
+            extractor=extractor, sparse_matcher=sparse_matcher,
+            global_desc_fn=global_desc_fn, device=args.device)
         poses[q.name] = (qvec, tvec)
         print(f"{q.name}: {info['method']} ({info.get('num_inliers', 0)} inl)")
     out = os.path.join(args.out, "results_dense.txt")
@@ -150,17 +200,28 @@ def stage_sfm(args):
     return mapped, poses
 
 
-def _refuse_weights(args, files, what: str) -> None:
-    """Raise where ``--weights-dir`` holds a checkpoint that would light up
-    a network the port does not have."""
+def _build_depth_estimator(args):
+    """``--weights-dir`` holding a depth prior turns on the few-shot
+    pseudo-depth term of training: DPT_Hybrid when
+    dpt_hybrid-midas-501f0c75.pt is present, else MiDaS v2.1 when
+    midas_v21-f6b98070.pt is; None (no prior) otherwise. The net runs on
+    ``--device``."""
     if not args.weights_dir:
-        return
-    found = [f for f in files
-             if os.path.exists(os.path.join(args.weights_dir, f))]
-    if found:
-        raise NotImplementedError(
-            f"--weights-dir holds {found}: {what} is not ported yet "
-            "(ROADMAP.md §1 item 13, networks)")
+        return None
+    from ..sfm import weights as weights_lib
+
+    for name in ("dpt_hybrid", "midas_v21"):
+        path = _weight_path(args, name)
+        if os.path.exists(path):
+            net = weights_lib.load(name, path, device=args.device)
+            if name == "dpt_hybrid":
+                from ..ops.dpt import make_dpt_estimator as make
+            else:
+                from ..ops.midas import make_midas_estimator as make
+            print(f"weights: {name} depth prior enabled (few-shot "
+                  "pseudo-view regularization)")
+            return make(net)
+    return None
 
 
 def stage_train(args):
@@ -168,8 +229,6 @@ def stage_train(args):
     from .train_map import train_map
     from ..raster import RasterizerConfig
 
-    _refuse_weights(args, _DEPTH_PRIORS,
-                    "the monocular depth prior (pseudo views)")
     scene = _load_scene(args)
     sfm_pts = os.path.join(args.out, "sfm_points.npz")
     if scene.points.shape[0] == 0 and os.path.exists(sfm_pts):
@@ -202,7 +261,9 @@ def stage_train(args):
     rcfg = RasterizerConfig(max_pairs=args.max_pairs,
                             max_per_tile=args.max_per_tile,
                             use_stream=args.stream)
-    return train_map(scene, args.out, tcfg, mcfg, rcfg, device=args.device)
+    return train_map(scene, args.out, tcfg, mcfg, rcfg,
+                     depth_estimator=_build_depth_estimator(args),
+                     device=args.device)
 
 
 def stage_localize(args):
@@ -215,7 +276,6 @@ def stage_localize(args):
     from ..raster import RasterizerConfig
     from ..sfm.io import read_pose_results, write_pose_results
 
-    _refuse_weights(args, (_SUPERPOINT,), "SuperPoint (keypoint masks)")
     scene = _load_scene(args)
     map_path = args.map or os.path.join(
         args.out, f"gs_map/iteration_{args.iterations or 30000}",
@@ -229,6 +289,17 @@ def stage_localize(args):
     rcfg = RasterizerConfig(max_pairs=args.max_pairs,
                             max_per_tile=args.max_per_tile,
                             use_stream=args.stream)
+
+    # the reference's masks are grad_mask union SuperPoint keypoint boxes:
+    # with --weights-dir the extractor feeds each query's keypoints
+    kp_extractor = None
+    if args.weights_dir:
+        from ..sfm.registry import get_extractor
+
+        sp = _load_superpoint(args)
+        if sp is not None:
+            kp_extractor = get_extractor("superpoint_aachen", params=sp)
+            print("weights: superpoint keypoint masks enabled")
 
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=args.device)
@@ -244,8 +315,13 @@ def stage_localize(args):
         if not lcfg.tracking.monocular and q.depth_path and \
                 os.path.exists(q.depth_path):
             dep = load_depth(q.depth_path)
+        kps = None
+        if kp_extractor is not None:
+            feats = kp_extractor(img)
+            kp = feats.keypoints.cpu().numpy()
+            kps = kp[feats.scores.cpu().numpy() > lcfg.keypoint_score_min]
         queries.append(QuerySpec(
-            name=q.name, camera=cam, image=img, depth=dep, keypoints=None,
+            name=q.name, camera=cam, image=img, depth=dep, keypoints=kps,
             gt_w2c=q.camera.w2c.cpu().numpy(),
         ))
     results, metrics = localize_queries(gaussians, queries, lcfg, rcfg)
@@ -293,12 +369,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--extractor", default="harris",
                     choices=("harris", "sift"),
                     help="SfM front-end features (sift = DoG+rootSIFT; "
-                         "read by the sfm stage)")
+                         "read by the sfm stage); --weights-dir upgrades "
+                         "to SuperPoint when superpoint_v1.pth is present")
     ap.add_argument("--weights-dir", default=None,
-                    help="directory of official checkpoints (WEIGHTS.md); "
-                         "the networks they enable are not ported yet, so "
-                         "a checkpoint a stage would use raises, and "
-                         "absent files leave the classical front end")
+                    help="directory of official checkpoints (WEIGHTS.md): "
+                         "enables SuperPoint/SuperGlue/NetVLAD for the sfm "
+                         "stage, the DPT/MiDaS depth prior for training and "
+                         "SuperPoint keypoint masks for localization; "
+                         "absent files leave the classical path")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the hand-written kernels) or cpu (their "
                          "plain PyTorch versions)")

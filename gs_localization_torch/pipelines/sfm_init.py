@@ -95,7 +95,9 @@ def _on(img, dev) -> torch.Tensor:
     return torch.tensor(np.asarray(img, np.float32), device=dev)
 
 
-def _match(qf: Features, f: Features, cfg) -> np.ndarray:
+def _match(qf: Features, f: Features, cfg, sparse_matcher) -> np.ndarray:
+    if sparse_matcher is not None:
+        return _host(sparse_matcher(qf, f).matches0)
     return _host(match_mutual_nn(qf.descriptors, f.descriptors,
                                  qf.scores > 0, f.scores > 0,
                                  ratio_thresh=cfg.ratio_thresh).matches0)
@@ -109,6 +111,7 @@ def build_point_model(
     extractor: Optional[Callable] = None,
     global_desc_fn: Optional[Callable] = None,
     dense_matcher: Optional[Callable] = None,
+    sparse_matcher: Optional[Callable] = None,
     log_fn: Callable[[str], None] = print,
     device="cuda",
 ) -> MappedScene:
@@ -120,7 +123,12 @@ def build_point_model(
     (numpy images, as given) switches mapping to the dense path (reference
     match_dense.py 'loftr' conf family): per-pair semi-dense correspondences
     are quantized into shared per-image keypoints (sfm/match_dense.py)
-    before track building."""
+    before track building.
+
+    ``sparse_matcher(feats0, feats1) -> result with .matches0`` replaces
+    the mutual-NN descriptor matching with a learned matcher, e.g. the
+    registry's ``get_matcher("superglue", params=sg)`` with the image size
+    bound (``pipelines/run_scene.py --weights-dir``)."""
     dev = resolve_device(device)
     n = len(images)
     extractor, global_desc_fn = _default_frontend(cfg, extractor,
@@ -171,7 +179,7 @@ def build_point_model(
         feats = [extractor(img) for img in on_dev]
         log_fn(f"extracted features for {n} mapping images")
         for (a, b) in pair_idx:
-            mi = _match(feats[a], feats[b], cfg)
+            mi = _match(feats[a], feats[b], cfg, sparse_matcher)
             ok = mi >= 0
             if ok.sum() < 8:
                 continue
@@ -249,6 +257,7 @@ def localize_query_pnp(
     cfg: SfmInitConfig = SfmInitConfig(),
     extractor: Optional[Callable] = None,
     global_desc_fn: Optional[Callable] = None,
+    sparse_matcher: Optional[Callable] = None,
     seed: int = 0,
     device="cuda",
 ) -> Tuple[np.ndarray, np.ndarray, dict]:
@@ -257,7 +266,7 @@ def localize_query_pnp(
     Returns (qvec wxyz, tvec, info). Falls back to the top-retrieved train
     camera's pose when PnP fails (the reference's fallback). Pass the same
     ``extractor`` / ``global_desc_fn`` (and ``device``) used for the point
-    model.
+    model, and the same ``sparse_matcher``.
     """
     dev = resolve_device(device)
     extractor, global_desc_fn = _default_frontend(cfg, extractor,
@@ -280,7 +289,7 @@ def localize_query_pnp(
     for j in retrieved:
         if j not in obs_of:
             continue
-        mi = _match(qf, mapped.features[j], cfg)
+        mi = _match(qf, mapped.features[j], cfg, sparse_matcher)
         # kp index in j -> track id
         kp_to_track = {}
         for e in obs_of[j]:

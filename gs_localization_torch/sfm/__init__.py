@@ -17,11 +17,18 @@ classical front end, which needs no weights:
                   pycolmap.incremental_mapping.
 - ``adalam`` / ``match_dense``: AdaLAM match filtering, dense-match
                   aggregation.
+- ``superpoint`` / ``superglue`` / ``netvlad``: the learned front end
+                  (SuperPoint features, SuperGlue matching, NetVLAD
+                  retrieval) as ``nn.Module``s on an explicit device.
+- ``weights`` / ``registry``: the official checkpoint manifest and loader,
+                  and hloc's conf names -> extractors, matchers, global
+                  descriptors.
 - ``evaluate``  : the reference's median / threshold-recall pose metrics.
 - ``io``        : results files (name qw qx qy qz tx ty tz) and query lists
                   with intrinsics — interop with existing hloc artifacts.
 
-The host-side parts (pairs, tracks, triangulation, PnP, the mapper, AdaLAM,
+The networks' convolutions and matmuls are library calls (cuDNN, cuBLAS)
+held to float32. The host-side parts (pairs, tracks, triangulation, PnP, the mapper, AdaLAM,
 dense aggregation) are numpy copies of the JAX package's and give the same
 bits for the same inputs and seeds.
 """
@@ -37,3 +44,12 @@ from .incremental import (
     incremental_mapping,
 )
 from .evaluate import umeyama_alignment
+from .superglue import (
+    SuperGlueNet, load_superglue, matches_as_pairs, superglue_from_jax_params,
+    superglue_match,
+)
+from .superpoint import (
+    SuperPointNet, extract_superpoint, load_superpoint,
+    superpoint_from_jax_params,
+)
+from .netvlad import NetVLAD, load_netvlad_mat, netvlad_descriptor

@@ -669,3 +669,95 @@ def test_bundle_adjust_cuda_matches_cpu(cuda_device):
           f"{d_cam:.3g}, points {d_pts:.3g} apart at most")
     assert d_cam < 1e-3, d_cam
     assert d_pts < 1e-3, d_pts
+
+
+def _sharp_superpoint(device):
+    """SuperPoint at PyTorch's default init (seed 0), its detector logits
+    scaled by 100 so that scores are peaked and few responses tie."""
+    from gs_localization_torch.sfm.superpoint import SuperPointNet
+
+    torch.manual_seed(0)
+    net = SuperPointNet("cpu")
+    with torch.no_grad():
+        net.convPb.weight.mul_(100.0)
+        net.convPb.bias.mul_(100.0)
+    return net.to(device)
+
+
+def test_superpoint_cuda_matches_cpu_with_tf32_on(cuda_device):
+    """The runner's own process leaves cuDNN's TF32 on (PyTorch's default);
+    the net holds float32 itself, so the card's score map is the CPU's
+    within 1e-5 (TF32 would move these peaked scores by ~1e-2), >= 0.99 of
+    the CPU's keypoints are among the card's (cuDNN's summation order may
+    move near-ties, and one keypoint admitted or not shifts every later
+    slot, so pixels are compared as sets), and the flags come back as
+    they were."""
+    from gs_localization_torch.sfm.superpoint import extract_superpoint
+
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 1, (480, 640)).astype(np.float32)
+    net_c, net_g = _sharp_superpoint("cpu"), _sharp_superpoint(cuda_device)
+    img_g = torch.tensor(img, device=cuda_device)
+    cpu = extract_superpoint(net_c, torch.tensor(img), 4096, 3)
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card = extract_superpoint(net_g, img_g, 4096, 3)
+        with torch.no_grad():
+            d_map = float((net_g(img_g)[0].cpu()
+                           - net_c(torch.tensor(img))[0]).abs().max())
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    valid = cpu.scores.numpy() > 0
+    ref = {tuple(p) for p in cpu.keypoints.numpy()[valid]}
+    got = {tuple(p) for p in card.keypoints.cpu().numpy()}
+    assert int((card.scores > 0).sum()) == len(ref) > 1000
+    assert len(ref & got) >= 0.99 * len(ref)
+    assert d_map <= 1e-5, d_map
+
+
+def test_networks_cuda_match_cpu(cuda_device):
+    """SuperGlue (256 keypoints, sinkhorn 5), NetVLAD (128x160) and both
+    depth priors' estimate_depth (at reduced MiDaS depth) on the card
+    against the CPU, from the same weights."""
+    from gs_localization_torch.ops import dpt, midas
+    from gs_localization_torch.sfm import netvlad
+    from gs_localization_torch.sfm.superglue import (SuperGlueNet,
+                                                     superglue_match)
+
+    rng = np.random.default_rng(1)
+    torch.manual_seed(0)
+    sg = SuperGlueNet("cpu")
+    kp = [torch.tensor(rng.uniform(0, 640, (256, 2)), dtype=torch.float32)
+          for _ in range(2)]
+    sc = [torch.tensor(rng.uniform(0.1, 1, 256), dtype=torch.float32)
+          for _ in range(2)]
+    de = [torch.nn.functional.normalize(torch.randn(256, 256), dim=1)
+          for _ in range(2)]
+    args = (kp[0], sc[0], de[0], kp[1], sc[1], de[1], 640, 480, 640, 480)
+    rc = superglue_match(sg, *args, sinkhorn_iters=5)
+    rg = superglue_match(sg.to(cuda_device), *[
+        a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+        for a in args], sinkhorn_iters=5)
+    np.testing.assert_allclose(rg.matching_scores0.cpu().numpy(),
+                               rc.matching_scores0.numpy(), atol=1e-4)
+    img = rng.uniform(0, 1, (128, 160, 3)).astype(np.float32)
+    nv_p = netvlad.init_params(np.random.default_rng(2))
+    dc = netvlad.netvlad_descriptor(netvlad.NetVLAD(nv_p, "cpu"),
+                                    torch.tensor(img))
+    dg = netvlad.netvlad_descriptor(netvlad.NetVLAD(nv_p, cuda_device),
+                                    torch.tensor(img, device=cuda_device))
+    np.testing.assert_allclose(dg.cpu().numpy(), dc.numpy(), rtol=2e-3,
+                               atol=2e-5)
+    for mod, p in ((dpt, dpt.init_params(np.random.default_rng(3))),
+                   (midas, midas.init_params(np.random.default_rng(4),
+                                             stage_blocks=(1, 1, 1, 1)))):
+        cls = mod.DPT if mod is dpt else mod.MiDaS
+        ec = mod.estimate_depth(cls(p, "cpu"), torch.tensor(img), 128, 160)
+        eg = mod.estimate_depth(cls(p, cuda_device),
+                                torch.tensor(img, device=cuda_device),
+                                128, 160)
+        scale = float(ec.abs().max())
+        np.testing.assert_allclose(eg.cpu().numpy() / scale,
+                                   ec.numpy() / scale, atol=5e-4)

@@ -4,11 +4,17 @@ With ``train_map`` / ``load_map`` / ``localize_queries`` replaced in both
 packages by recorders, the train and localize stages of each runner read
 the same 7-Scenes-shaped layout and must hand over the same configs, scene
 cameras and ``QuerySpec``s (seven_scenes and cambridge presets, with and
-without ``--iterations``). Then one tiny end-to-end CPU run of the port's
-CLI: prepare -> train 10 iterations -> localize 5 iterations at 64x48.
+without ``--iterations``). With random-weight checkpoints in
+``--weights-dir`` (the official shapes, names and formats), both runners
+turn on the same networks (SuperPoint, SuperGlue, NetVLAD, the DPT / MiDaS
+depth prior, the localize stage's SuperPoint masks) and the learned sfm
+stage gives JAX's points and init poses within stated tolerances. Then one
+tiny end-to-end CPU run of the port's CLI: prepare -> train 10 iterations
+-> localize 5 iterations at 64x48.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -210,7 +216,7 @@ def test_stage_train_hands_over_what_jax_does(layout, monkeypatch, preset,
     _same_fields(rj, rt)
     assert rt.use_stream and rt.max_pairs == 65536
     assert kj == {"depth_estimator": None}
-    assert kt == {"device": torch.device("cpu")}
+    assert kt == {"depth_estimator": None, "device": torch.device("cpu")}
     for cj, ct in ((sj.train_cameras, st.train_cameras),
                    (sj.test_cameras, st.test_cameras)):
         assert [c.name for c in cj] == [c.name for c in ct]
@@ -315,25 +321,189 @@ def test_stage_sfm_writes_what_jax_does(layout, sift_layout, monkeypatch,
     assert list(poses) == list(pt)
 
 
-def test_sfm_stage_and_weights_are_refused(layout, tmp_path):
-    """A checkpoint that would light up a network that is not ported
-    raises at the stage that would use it; an empty --weights-dir leaves
-    the classical front end."""
+def _learned_weights(d, seed=0):
+    """The learned front end's four checkpoints in ``d``, at the official
+    shapes, names and formats, from a seed: ``weights.write_random``'s
+    superpoint_v1.pth, Pitts30K_struct.mat and
+    dpt_hybrid-midas-501f0c75.pt, and a superglue_outdoor.pth of PyTorch's
+    default init with the residual branches (the keypoint encoder's and
+    each layer's last conv) at 0 and final_proj = 256 I, so that SuperGlue
+    is a sharp optimal transport of the descriptors and image pairs match
+    (at random weights no pair keeps 8 matches)."""
+    from gs_localization_torch.sfm import weights as tw
+    from gs_localization_torch.sfm.superglue import SuperGlueNet
+
+    for name in ("superpoint", "netvlad", "dpt_hybrid"):
+        tw.write_random(name, str(d), seed)
+    torch.manual_seed(seed)
+    sg = SuperGlueNet("cpu")
+    with torch.no_grad():
+        for conv in [sg.kenc.encoder[-1]] + [l.mlp[-1]
+                                             for l in sg.gnn.layers]:
+            conv.weight.zero_()
+            conv.bias.zero_()
+        sg.final_proj.weight.copy_(256.0 * torch.eye(256)[:, :, None])
+        sg.final_proj.bias.zero_()
+    torch.save(sg.state_dict(), d / "superglue_outdoor.pth")
+
+
+@pytest.fixture(scope="module")
+def weight_dirs(tmp_path_factory):
+    """{"all": the four checkpoints of ``_learned_weights``, "midas": a
+    random midas_v21-f6b98070.pt alone, "empty": no file}."""
+    from gs_localization_torch.sfm import weights as tw
+
+    dirs = {k: tmp_path_factory.mktemp(f"weights_{k}")
+            for k in ("all", "midas", "empty")}
+    _learned_weights(dirs["all"])
+    tw.write_random("midas_v21", str(dirs["midas"]), seed=1)
+    return dirs
+
+
+@pytest.mark.parametrize("contents,on", [
+    ("all", ("superpoint extractor", "superglue matcher",
+             "netvlad retrieval", "dpt_hybrid depth prior")),
+    ("midas", ("midas_v21 depth prior",)),
+    ("empty", ())])
+def test_weights_dir_turns_on_what_jax_does(weight_dirs, capsys, contents,
+                                           on):
+    """``_build_frontend`` and ``_build_depth_estimator`` of both runners
+    on the same --weights-dir: the same networks on (the same "weights:
+    ... enabled" lines), the same ones left classical (None); the train
+    stage hands the estimator to train_map."""
+    import argparse
+
+    from gs_localization_tpu.pipelines.sfm_init import SfmInitConfig as JCfg
+    from gs_localization_torch.pipelines.sfm_init import SfmInitConfig as TCfg
+
+    d = str(weight_dirs[contents])
+    aj = argparse.Namespace(extractor="harris", weights_dir=d)
+    at = argparse.Namespace(extractor="harris", weights_dir=d,
+                            device=torch.device("cpu"))
+    fj = jrun._build_frontend(aj, JCfg(), frame_size=(W, H))
+    ej = jrun._build_depth_estimator(aj)
+    log_j = capsys.readouterr().out
+    ft = trun._build_frontend(at, TCfg(), frame_size=(W, H))
+    et = trun._build_depth_estimator(at)
+    log_t = capsys.readouterr().out
+    assert log_t == log_j
+    assert [line for line in log_t.splitlines()
+            if line.startswith("weights: ")] == \
+        [f"weights: {w} enabled" + (" (sinkhorn 5)" if "superglue" in w
+                                    else " (few-shot pseudo-view "
+                                    "regularization)" if "depth" in w
+                                    else "") for w in on]
+    assert [f is None for f in ft] == [f is None for f in fj]
+    assert (et is None) == (ej is None) == (not any("depth" in w
+                                                    for w in on))
+    if contents == "all":
+        from gs_localization_torch.ops.dpt import DPT
+
+        assert any(isinstance(c.cell_contents, DPT) for c in et.__closure__)
+        img = torch.rand(H, W, 3)
+        assert ft[0](img).descriptors.shape == (1024, 256)
+        assert ft[2](img).shape == (4096,)
+
+
+def test_stage_train_hands_over_the_depth_prior(layout, weight_dirs,
+                                                monkeypatch):
     root, _ = layout
-    empty = tmp_path / "empty"
-    empty.mkdir()
-    done = trun.main(["--scene", str(root), "--stage", "sfm", "--device",
-                      "cpu", "--weights-dir", str(empty), "--out",
-                      str(tmp_path / "out")])
-    assert len(done["sfm"][1]) == N_TEST
-    (tmp_path / "midas_v21-f6b98070.pt").write_bytes(b"")
-    (tmp_path / "superpoint_v1.pth").write_bytes(b"")
-    for stage, what in (("train", "depth prior"), ("localize",
-                                                   "SuperPoint"),
-                        ("sfm", "SuperPoint / SuperGlue / NetVLAD")):
-        with pytest.raises(NotImplementedError, match=what):
-            trun.main(["--scene", str(root), "--stage", stage, "--device",
-                       "cpu", "--weights-dir", str(tmp_path)])
+    rec = _Recorder()
+    monkeypatch.setattr(ttm, "train_map", rec.train_map)
+    trun.main(["--scene", str(root), "--stage", "train", "--iterations",
+               "300", "--device", "cpu", "--weights-dir",
+               str(weight_dirs["midas"])])
+    from gs_localization_torch.ops.midas import MiDaS
+
+    est = rec.calls["train"][5]["depth_estimator"]
+    assert any(isinstance(c.cell_contents, MiDaS) for c in est.__closure__)
+
+
+def test_stage_localize_masks_match_jax(sift_layout, weight_dirs,
+                                        monkeypatch, tmp_path):
+    """With superpoint_v1.pth present both runners hand the localizer each
+    query's SuperPoint keypoints above keypoint_score_min (superpoint_aachen:
+    4,096 keypoints, NMS 3; the 96x72 layout holds 4,096 pixels)."""
+    root = sift_layout
+    args = trun.parse_args(["--scene", str(root), "--device", "cpu"])
+    init = {q.name: (rotmat_to_quat(np_of(q.camera.w2c)[:3, :3]
+                                    .astype(np.float64)),
+                     np_of(q.camera.w2c)[:3, 3].astype(np.float64))
+            for q in trun._load_scene(args).test_cameras}
+    write_pose_results(str(tmp_path / "results_dense.txt"), init)
+    jc, tc = _run_both(monkeypatch, [
+        "--scene", str(root), "--stage", "localize", "--out",
+        str(tmp_path), "--weights-dir", str(weight_dirs["all"])])
+    (_, qj, _, _), (_, qt, _, _) = jc["localize"], tc["localize"]
+    assert len(qt) == len(qj) == N_TEST
+    n = 0
+    for a, b in zip(qj, qt):
+        assert a.keypoints.shape[1] == 2
+        # equal as sets of pixels (the order of tied scores may differ)
+        np.testing.assert_array_equal(np.unique(b.keypoints, axis=0),
+                                      np.unique(a.keypoints, axis=0))
+        n += len(b.keypoints)
+    assert n > 0
+
+
+def _sfm_counts(log: str) -> dict:
+    import re
+
+    pats = {"pairs": r"matched (\d+) pairs", "kept": r"kept (\d+)/",
+            "tracks": r"triangulated (\d+)/", "points": r"saved (\d+) sfm"}
+    out = {k: int(re.search(p, log).group(1)) for k, p in pats.items()}
+    out["methods"] = re.findall(r"^\S+\.png: (\w+) \(", log, re.MULTILINE)
+    return out
+
+
+def test_stage_sfm_learned_matches_jax(layout, weight_dirs, monkeypatch,
+                                       tmp_path, capsys):
+    """--stage sfm with SuperPoint + SuperGlue + NetVLAD at 128 keypoints
+    on both runners. SuperPoint's descriptors are sampled bilinearly from
+    a 1/8 grid, so keypoints in one cell carry near-equal descriptors and
+    SuperGlue's argmax between them follows float32 rounding (one match of
+    1,726 differs between the packages on this layout). So: the same
+    networks on, the same pair count and query methods, match / track /
+    point counts within 2 %, 90 % of the points at a JAX point (1e-4 m),
+    and init poses within 0.5 degree / 1 cm."""
+    from gs_localization_tpu.pipelines import sfm_init as jsi
+    from gs_localization_torch.pipelines import sfm_init as tsi
+    from gs_localization_torch.core.camera import quat_to_rotmat
+    from gs_localization_torch.sfm.evaluate import pose_errors
+
+    monkeypatch.setattr(jprof, "enable_persistent_compile_cache",
+                        lambda *a, **k: None)
+    for mod in (jsi, tsi):
+        monkeypatch.setattr(mod, "SfmInitConfig", functools.partial(
+            mod.SfmInitConfig, num_keypoints=128))
+    root = layout[0]
+    argv = ["--scene", str(root), "--stage", "sfm", "--weights-dir",
+            str(weight_dirs["all"])]
+    jrun.main(argv + ["--out", str(tmp_path / "jax")])
+    log_j = capsys.readouterr().out
+    trun.main(argv + ["--out", str(tmp_path / "port"), "--device", "cpu"])
+    log_t = capsys.readouterr().out
+    weights_lines = [l for l in log_t.splitlines() if l.startswith("weights")]
+    assert len(weights_lines) == 3
+    assert weights_lines == [l for l in log_j.splitlines()
+                             if l.startswith("weights")]
+    cj, ct = _sfm_counts(log_j), _sfm_counts(log_t)
+    assert ct["pairs"] == cj["pairs"] > 0 and ct["methods"] == cj["methods"]
+    assert "pnp" in ct["methods"]
+    for k in ("kept", "tracks", "points"):
+        assert abs(ct[k] - cj[k]) <= 0.02 * cj[k], (k, ct[k], cj[k])
+    pj = np.load(tmp_path / "jax" / "sfm_points.npz")["points"]
+    pt = np.load(tmp_path / "port" / "sfm_points.npz")["points"]
+    near = np.min(np.linalg.norm(pt[:, None] - pj[None], axis=-1), axis=1)
+    assert np.mean(near <= 1e-4) >= 0.9, near
+    rj = read_pose_results(str(tmp_path / "jax" / "results_dense.txt"))
+    rt = read_pose_results(str(tmp_path / "port" / "results_dense.txt"))
+    assert list(rt) == list(rj)
+    for name in rj:
+        R = [quat_to_rotmat(torch.tensor(r[name][0])).numpy()
+             for r in (rj, rt)]
+        dt, dr = pose_errors(R[1], rt[name][1], R[0], rj[name][1])
+        assert dt <= 0.01 and dr <= 0.5, (name, dt, dr)
 
 
 def test_cli_end_to_end_on_the_cpu(layout, monkeypatch, capsys):

@@ -1,7 +1,8 @@
 """The port's SfM-init pipeline against the JAX package's: the point model
 of ``tests/test_sfm_init.py``'s world (JAX renders, known poses), the PnP
 and dense localizers of a held-out view, the depth-corrected point model,
-and the dense path with ``tests/test_match_dense.py``'s fake dense matcher.
+the dense path with ``tests/test_match_dense.py``'s fake dense matcher,
+and a ``sparse_matcher`` (the registry's AdaLAM) in place of mutual NN.
 
 Harris keypoints can differ where two responses tie within rounding, so
 tracks are compared by their observations: each package's tracks are keyed
@@ -126,6 +127,44 @@ def test_point_model_and_pnp_localizer_match_jax(world, depth):
                                   tinit.SfmInitConfig(**kw), device="cpu")
     _same_pose(rj, rt)
     assert rt[2]["method"] == "pnp"
+
+
+def test_sparse_matcher_matches_jax(world):
+    """``sparse_matcher`` replaces mutual-NN matching in both packages: the
+    registry's AdaLAM (host-side, the same bits in both) with the image
+    size bound, for the point model and the PnP localizer."""
+    from gs_localization_tpu.sfm.registry import get_matcher as jget
+    from gs_localization_torch.sfm.registry import get_matcher as tget
+
+    _, views, renders, _ = world
+    tviews = [camera_to_torch(v) for v in views]
+    n, size = 5, (160, 120)
+    mj_fn, mt_fn = jget("adalam"), tget("adalam")
+    calls = []
+
+    def sparse_t(f0, f1):
+        calls.append(1)
+        return mt_fn(f0, f1, size, size)
+
+    mj = jinit.build_point_model(
+        renders[:n], views[:n], jinit.SfmInitConfig(**CFG_KW),
+        sparse_matcher=lambda f0, f1: mj_fn(f0, f1, size, size),
+        log_fn=lambda m: None)
+    mt = tinit.build_point_model(
+        renders[:n], tviews[:n], tinit.SfmInitConfig(**CFG_KW),
+        sparse_matcher=sparse_t, log_fn=lambda m: None, device="cpu")
+    assert calls
+    _same_point_model(mj, mt)
+    assert int(mt.valid.sum()) > 20
+    q = 5
+    rj = jinit.localize_query_pnp(
+        renders[q], _K(views[q]), mj, views[:n], jinit.SfmInitConfig(**CFG_KW),
+        sparse_matcher=lambda f0, f1: mj_fn(f0, f1, size, size))
+    rt = tinit.localize_query_pnp(
+        renders[q], _K(views[q]), mt, tviews[:n],
+        tinit.SfmInitConfig(**CFG_KW), sparse_matcher=sparse_t,
+        device="cpu")
+    _same_pose(rj, rt)
 
 
 def test_dense_path_matches_jax():
