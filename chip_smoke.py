@@ -112,7 +112,30 @@
    + localize iterations, K2 = steps + pseudo steps + localize
    iterations, no K3/K4), a finite metrics.json, the sfm stage's time
    split; then the sfm stage again on the CPU, held against the card
-   (keypoints, points, methods, init poses).
+   (keypoints, points, methods, init poses);
+16. the rest of hloc's learned confs: checkpoints from a seed at the
+   official shapes, names and formats (``write_random``'s superpoint,
+   d2net, r2d2, disk, dir, openibl and eigenplaces rows;
+   ``superpoint_lightglue.pth`` with its residual branches at 0 and a
+   sharp final projection, and ``outdoor_ds.ckpt`` reduced to census
+   matching, so that pairs match: ``sharp_lightglue``,
+   ``sharp_loftr_params``), read back through ``weights.load`` on the card
+   and on the CPU, DIR with a PCA whitening made from a seed; each conf
+   through the registry at full width on the card against the CPU and its
+   median ms per call (r2d2, d2net-ss and disk at 640x480 with 5,000
+   keypoints, lightglue on two 2,048-keypoint superpoint_max sets, loftr
+   on two 640x480 views at 512 slots, dir, openibl and eigenplaces at
+   640x480); on a fresh layout of step 11's views, ``build_point_model``
+   and the localizers with superpoint_max + lightglue + dir (the sparse
+   front end) and with loftr + eigenplaces (the dense one), on the card
+   and again on the CPU (points within 2 %, the same methods, init poses
+   within 5 cm / 1 deg); the sparse front end's ``results_dense.txt`` and
+   ``sfm_points.npz`` as the sfm stage writes them, then ``run_scene
+   --stage train --iterations 100`` from its points and ``--stage
+   localize`` from both front ends' initial poses, with the exact K1/K2
+   launches of the three runs (K1 = steps + held-out renders + localize
+   iterations, K2 = steps + localize iterations, no K3/K4) and finite
+   metrics.json files; the phase's own time.
 
 Prints one JSON line of kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -155,6 +178,10 @@ SCENE_ITERS = 300
 FS_INTERVAL, FS_WINDOW = 20, (10, 290)
 # the learned front end's --stage all run: its train iterations
 LEARNED_ITERS = 100
+# the hloc confs' sfm runs: the pair window and retrieval depth of
+# SfmInitConfig (2 and 2 hold the CPU rerun's LoFTR and LightGlue calls
+# near 30 pairs each), and the train iterations
+HLOC_WINDOW, HLOC_RETRIEVAL, HLOC_ITERS = 2, 2, 100
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_FP32 = 67e12     # FLOP/s on the CUDA cores, a fused multiply-add as 2
@@ -1261,12 +1288,16 @@ def all_stages(g, cam, cfg, dev) -> dict:
 
 
 def keypoint_share(kp_ref, valid_ref, kp) -> float:
-    """The share of the reference's valid keypoints (pixels) that ``kp``
-    holds too, in any slot: a keypoint that one device admits and the
+    """The share of the reference's valid keypoints that ``kp`` holds too,
+    in any slot, within 1e-3 px (D2-Net's are sub-pixel; the others'
+    pixels compare exactly): a keypoint that one device admits and the
     other does not (a near-tie in the NMS or at the top-k cut) moves every
     later slot, so slots are not compared one by one."""
-    ref = {tuple(p) for p in np.asarray(kp_ref)[valid_ref]}
-    return len(ref & {tuple(p) for p in np.asarray(kp)}) / max(len(ref), 1)
+    ref, kp = np.asarray(kp_ref)[valid_ref], np.asarray(kp)
+    hits = sum(int((np.abs(part[:, None] - kp[None]).max(-1).min(1)
+                    <= 1e-3).sum())
+               for part in np.array_split(ref, max(1, len(ref) // 256)))
+    return hits / max(len(ref), 1)
 
 
 def sharp_superglue(path: Path, seed: int) -> None:
@@ -1288,6 +1319,176 @@ def sharp_superglue(path: Path, seed: int) -> None:
         sg.final_proj.weight.copy_(256.0 * torch.eye(256)[:, :, None])
         sg.final_proj.bias.zero_()
     torch.save(sg.state_dict(), path)
+
+
+def sharp_lightglue(path: Path, seed: int) -> None:
+    """superpoint_lightglue.pth at the official shapes and names from a
+    seed: PyTorch's default init with the residual branches (each block's
+    last FFN layer) at 0, ``input_proj`` the identity, the last assignment
+    head's ``final_proj`` = 256 I (as ``sharp_superglue``'s) and its
+    matchability bias at 10, so that LightGlue is a sharp double softmax of
+    the SuperPoint descriptors' cosines (256^2 / 16 = 4,096 per unit) and
+    image pairs match: 642 matches of 1,024 keypoints on the scene phase's
+    first two views, where random weights keep none and 64 I keeps 2 (a
+    CPU run)."""
+    import torch
+    from gs_localization_torch.sfm.lightglue import (
+        DIM, LightGlueNet, lightglue_state_dict)
+
+    torch.manual_seed(seed)
+    lg = LightGlueNet("cpu")
+    with torch.no_grad():
+        for lyr in lg.transformers:
+            for blk in (lyr.self_attn, lyr.cross_attn):
+                blk.ffn[3].weight.zero_()
+                blk.ffn[3].bias.zero_()
+        lg.input_proj.weight.copy_(torch.eye(DIM))
+        lg.input_proj.bias.zero_()
+        head = lg.log_assignment[-1]
+        head.final_proj.weight.copy_(256.0 * torch.eye(DIM))
+        head.final_proj.bias.zero_()
+        head.matchability.weight.zero_()
+        head.matchability.bias.fill_(10.0)
+    torch.save(lightglue_state_dict(lg), path)
+
+
+def _grid(radius: int):
+    """The offsets of a (2r+1)^2 grid, the centre first, by max-norm."""
+    return sorted(((a, b) for a in range(-radius, radius + 1)
+                   for b in range(-radius, radius + 1)),
+                  key=lambda o: (max(abs(o[0]), abs(o[1])), o))
+
+
+def sharp_loftr_params(seed: int) -> dict:
+    """LoFTR weights at the official shapes, in the JAX package's params
+    layout, that reduce the network to census-transform matching, so that
+    image pairs match (at PyTorch's default init the scene phase's first two
+    views keep none of the 512 slots):
+
+    - conv1 is a 7x7 box blur B (half resolution);
+    - layer1 writes B on a 5x5 grid 2 px apart (the fine descriptor) and
+      layer2 B on a 7x7 grid 4 px apart (quarter resolution): one tap per
+      conv of each block's residual branch; every other residual branch
+      is 0, so the blocks pass their input on;
+    - layer3's first block computes 128 census comparisons of random pairs
+      of the 49 samples and their complements, clamp(50 (B_a - B_b) + 1,
+      0, 2) = relu(k d + 1 - relu(k d - 1)) from its shortcut and residual
+      branch (the complements make every descriptor's sum 256); the
+      coarse features are 2 x these bits;
+    - the coarse and fine transformers are identities (norm2 at 0), the
+      FPN's coarse-to-fine branch is 0, the fine features are 20 x the
+      zero-mean 5x5 grid plus 20 (the offset passes the LeakyReLU and
+      cancels in the fine softmax), and ``merge_feat`` passes them on.
+
+    The scale 2 and the gains were chosen on the scene phase's views (640
+    x 480 renders of the bench map): 65-96 % of a pair's 512 matches land
+    within 4 px of the true correspondence (a CPU run)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    d1, d2, d3 = 128, 196, 256
+
+    def bn(c, beta=0.0):
+        return {"gamma": np.ones(c, f32), "beta": np.full(c, beta, f32),
+                "mean": np.zeros(c, f32), "var": np.ones(c, f32)}
+
+    def eye(cin, cout, k=1, scale=1.0):
+        w = np.zeros((k, k, cin, cout), f32)
+        n = min(cin, cout)
+        w[k // 2, k // 2, np.arange(n), np.arange(n)] = scale
+        return w
+
+    def block(cin, cout, stride=1):
+        p = {"conv1": np.zeros((3, 3, cin, cout), f32), "bn1": bn(cout),
+             "conv2": np.zeros((3, 3, cout, cout), f32), "bn2": bn(cout)}
+        if stride != 1:
+            p["down"], p["down_bn"] = eye(cin, cout), bn(cout)
+        return p
+
+    def write_grid(first, second, src, ch):
+        """Channel ch[o] = channel src shifted by o: max-norm 1 in the
+        first block (a conv2 tap), further out in the second (a conv1 tap
+        from the max-norm-1 channel towards o, then a conv2 tap)."""
+        for o, m in ch.items():
+            if o == (0, 0):
+                continue
+            sign = tuple(int(np.sign(v)) for v in o)
+            if max(abs(o[0]), abs(o[1])) == 1:
+                first["conv1"][1, 1, src, m] = 1.0
+                first["conv2"][1 + o[0], 1 + o[1], m, m] = 1.0
+                continue
+            s1 = [sg if abs(v) >= 2 else 0 for v, sg in zip(o, sign)]
+            s2 = [sg if abs(v) >= 3 else 0 for v, sg in zip(o, sign)]
+            second["conv1"][1 + s1[0], 1 + s1[1], ch[sign], m] = 1.0
+            second["conv2"][1 + s2[0], 1 + s2[1], m, m] = 1.0
+
+    conv1 = np.zeros((7, 7, 1, d1), f32)
+    conv1[:, :, 0, 0] = 1.0 / 49.0
+    fine_ch = {o: i for i, o in enumerate(_grid(2))}
+    l1 = [block(d1, d1), block(d1, d1)]
+    write_grid(l1[0], l1[1], 0, fine_ch)
+    coarse_ch = {o: i for i, o in enumerate(_grid(3))}
+    l2 = [block(d1, d2, 2), block(d2, d2)]
+    l2[0]["down"] = np.zeros((1, 1, d1, d2), f32)
+    l2[0]["down"][0, 0, 0, 0] = 1.0
+    write_grid(l2[0], l2[1], 0, coarse_ch)
+    pairs = list(zip(*np.triu_indices(len(coarse_ch), 1)))
+    census = np.zeros((d2, d3), f32)
+    for c, i in enumerate(rng.permutation(len(pairs))[:d3 // 2]):
+        a, b = pairs[i]
+        census[a, c], census[b, c] = 50.0, -50.0
+        census[b, d3 // 2 + c], census[a, d3 // 2 + c] = 50.0, -50.0
+    l3 = [block(d2, d3, 2), block(d3, d3)]
+    l3[0].update(conv2=eye(d3, d3, 3, -1.0), bn1=bn(d3, -1.0),
+                 down=census[None, None], down_bn=bn(d3, 1.0))
+    l3[0]["conv1"][1, 1] = census
+    fine = np.zeros((1, 1, d1, d2), f32)
+    n = len(fine_ch)
+    fine[0, 0, :n, :n] = 20.0 * (np.eye(n) - 1.0 / n)
+
+    def rnd(*shape):
+        return (0.05 * rng.standard_normal(shape)).astype(f32)
+
+    def identity_layer(d):
+        return {"q": rnd(d, d), "k": rnd(d, d), "v": rnd(d, d),
+                "merge": rnd(d, d), "mlp1": rnd(2 * d, 2 * d),
+                "mlp2": rnd(2 * d, d),
+                "norm1": {"gamma": np.ones(d, f32),
+                          "beta": np.zeros(d, f32)},
+                "norm2": {"gamma": np.zeros(d, f32),
+                          "beta": np.zeros(d, f32)}}
+
+    merge = np.zeros((2 * d1, d1), f32)
+    merge[:d1] = np.eye(d1)
+    return {
+        "backbone": {
+            "conv1": conv1, "bn1": bn(d1), "layer1": l1, "layer2": l2,
+            "layer3": l3, "layer3_outconv": eye(d3, d3, 1, 2.0),
+            "layer2_outconv": rnd(1, 1, d2, d3),
+            "layer2_outconv2_a": rnd(3, 3, d3, d3),
+            "layer2_outconv2_bn": bn(d3),
+            "layer2_outconv2_b": np.zeros((3, 3, d3, d2), f32),
+            "layer1_outconv": fine,
+            "layer1_outconv2_a": eye(d2, d2, 3),
+            "layer1_outconv2_bn": bn(d2, 20.0),
+            "layer1_outconv2_b": eye(d2, d1, 3)},
+        "coarse": [identity_layer(256) for _ in range(8)],
+        "fine_preprocess": {"down_proj_w": rnd(256, 128),
+                            "down_proj_b": np.zeros(128, f32),
+                            "merge_w": merge,
+                            "merge_b": np.zeros(128, f32)},
+        "fine": [identity_layer(128) for _ in range(2)],
+    }
+
+
+def sharp_loftr(path: Path, seed: int) -> None:
+    """outdoor_ds.ckpt in the official format (the ``state_dict`` under
+    ``matcher.``) with ``sharp_loftr_params``' weights."""
+    import torch
+    from gs_localization_torch.sfm.loftr import loftr_from_jax_params
+
+    net = loftr_from_jax_params(sharp_loftr_params(seed), "cpu")
+    torch.save({"state_dict": {f"matcher.{k}": v.clone() for k, v in
+                               net.state_dict().items()}}, path)
 
 
 def learned_front_end(g, cam, cfg, dev) -> dict:
@@ -1572,6 +1773,347 @@ def learned_front_end(g, cam, cfg, dev) -> dict:
     finally:
         ploc.refine_poses_batch = batch
         dpt_lib.estimate_depth = estimate
+        shutil.rmtree(work, ignore_errors=True)
+
+
+class DuckPCA:
+    """sklearn's PCA attributes (as dirtorch checkpoints store the
+    whitening under ``pca['Landmarks_clean']``), made from a seed: a
+    random orthonormal basis of the descriptor space and decreasing
+    variances."""
+
+    def __init__(self, dim: int, seed: int):
+        rng = np.random.default_rng(seed)
+        q, _ = np.linalg.qr(rng.standard_normal((dim, dim)))
+        self.mean_ = (0.01 * rng.standard_normal(dim)).astype(np.float32)
+        self.components_ = q.T.astype(np.float32)
+        self.explained_variance_ = np.linspace(
+            2.0, 0.05, dim).astype(np.float32)
+        self.whiten = True
+
+
+def hloc_confs(g, cam, cfg, dev) -> dict:
+    """The rest of hloc's learned confs on the card (see the module
+    docstring, step 16). Returns the launch counts of its train and two
+    localize runs."""
+    import torch
+    import gs_localization_torch as gsl
+    from gs_localization_torch.core.camera import quat_to_rotmat
+    from gs_localization_torch.data.scene import load_depth, load_image
+    from gs_localization_torch.data.seven_scenes import (
+        load_seven_scenes_scene)
+    from gs_localization_torch.pipelines import localize as ploc
+    from gs_localization_torch.pipelines import run_scene
+    from gs_localization_torch.pipelines.sfm_init import (
+        SfmInitConfig, build_point_model, localize_query_dense,
+        localize_query_pnp)
+    from gs_localization_torch.sfm import weights as wlib
+    from gs_localization_torch.sfm.d2net import dense_features
+    from gs_localization_torch.sfm.dir import load_pca_from_sklearn
+    from gs_localization_torch.sfm.disk import unet_forward
+    from gs_localization_torch.sfm.evaluate import pose_errors
+    from gs_localization_torch.sfm.io import write_pose_results
+    from gs_localization_torch.sfm.r2d2 import r2d2_forward
+    from gs_localization_torch.sfm.registry import (
+        get_dense_matcher, get_extractor, get_global_descriptor, get_matcher)
+
+    cpu = torch.device("cpu")
+    smi = smi_line()
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_hloc_",
+                                 dir=ROOT / "build"))
+    batch = ploc.refine_poses_batch
+    try:
+        wdir = work / "weights"
+        wdir.mkdir()
+        t0 = time.perf_counter()
+        for name in ("superpoint", "d2net", "r2d2", "disk", "dir", "openibl",
+                     "eigenplaces"):
+            wlib.write_random(name, str(wdir), seed=0)
+        sharp_lightglue(wdir / wlib.MANIFEST["lightglue"].file, 0)
+        sharp_loftr(wdir / wlib.MANIFEST["loftr_outdoor"].file, 0)
+        nets = {}
+        for name in ("superpoint", "lightglue", "loftr_outdoor", "d2net",
+                     "r2d2", "disk", "dir", "openibl", "eigenplaces"):
+            path = str(wdir / wlib.MANIFEST[name].file)
+            nets[name] = (wlib.load(name, path, device=dev),
+                          wlib.load(name, path, device=cpu))
+        pca = load_pca_from_sklearn(DuckPCA(2048, 0))
+        for net in nets["dir"]:
+            net.set_pca(pca)
+        print(f"[hloc] checkpoints written and loaded on the card and the "
+              f"CPU in {time.perf_counter() - t0:.1f} s: "
+              + ", ".join(f"{n} {wlib.n_params(v[0]):,}"
+                          for n, v in nets.items())
+              + " parameters; DIR with a 2,048-component PCA whitening")
+
+        # the layout: the scene phase's views
+        root = work / "chess"
+        rng_s = np.random.default_rng(13)
+        views = [cam] + [perturbed(cam, rng_s, 0.03, 0.1) for _ in
+                         range(N_SCENE_TRAIN + N_SCENE_TEST - 1)]
+        true_w2c = write_seven_scenes(root, g, views, cfg)
+        test_names = list(true_w2c)[N_SCENE_TRAIN:]
+        rgb = [load_image(str(root / "seq-01" / f"frame-{k:06d}.color.png"))
+               for k in (0, 1)]
+        img_c = [torch.tensor(im) for im in rgb]
+        img_g = [im.to(dev) for im in img_c]
+
+        # 1. each conf at full width, the card against the CPU
+        ms = {}
+        for conf, name, dense_fn in (("r2d2", "r2d2", r2d2_forward),
+                                     ("d2net-ss", "d2net", dense_features),
+                                     ("disk", "disk", unet_forward)):
+            net_g, net_c = nets[name]
+            ext_g = get_extractor(conf, params=net_g)
+            ext_c = get_extractor(conf, params=net_c)
+            fc, fg = ext_c(img_c[0]), ext_g(img_g[0])
+            valid = fc.scores.numpy() > 0
+            share = keypoint_share(fc.keypoints.numpy(), valid,
+                                   fg.keypoints.cpu().numpy())
+            with torch.no_grad(), gsl.float32_exact():
+                oc, og = dense_fn(net_c, img_c[0]), dense_fn(net_g, img_g[0])
+            oc, og = (oc, og) if isinstance(oc, tuple) else ((oc,), (og,))
+            d_map = max(float((b.cpu() - a).abs().max() / a.abs().max())
+                        for a, b in zip(oc, og))
+            ms[conf] = time_ms(lambda: ext_g(img_g[0]), 5)
+            print(f"[hloc] {conf} 640x480 ({fc.keypoints.shape[0]:,} "
+                  f"slots): {int(valid.sum())} keypoints on the CPU, "
+                  f"{int((fg.scores > 0).sum())} on the card; {share:.4f} "
+                  f"of the CPU's also on the card (within 1e-3 px: "
+                  f"D2-Net's are sub-pixel); dense output max|d| "
+                  f"{d_map:.3e} of its scale (tol 1e-4)")
+            check(valid.sum() > 100 and share >= 0.99 and d_map <= 1e-4
+                  and abs(int((fg.scores > 0).sum()) - int(valid.sum()))
+                  <= 0.01 * valid.sum(), f"{conf} differs (card vs CPU)")
+
+        sp_g, sp_c = nets["superpoint"]
+        ext = [get_extractor("superpoint_max", params=n, num_keypoints=2048)
+               for n in (sp_g, sp_c)]
+        fg = [ext[0](im) for im in img_g]
+        fc = [ext[1](im) for im in img_c]
+        mt = [get_matcher("lightglue", params=n) for n in nets["lightglue"]]
+        size = (W, H)
+        rc = mt[1](fc[0], fc[1], size, size)
+        rg = mt[0](*[f._replace(keypoints=f.keypoints.to(dev),
+                                scores=f.scores.to(dev),
+                                descriptors=f.descriptors.to(dev))
+                     for f in fc], size, size)
+        m_c, m_g = rc.matches0.numpy(), rg.matches0.cpu().numpy()
+        agree = float(np.mean(m_c == m_g))
+        d_ms = float(np.abs(rc.matching_scores0.numpy()
+                            - rg.matching_scores0.cpu().numpy()).max())
+        ms["lightglue"] = time_ms(lambda: mt[0](fg[0], fg[1], size, size), 5)
+        print(f"[hloc] lightglue on two 2,048-keypoint superpoint_max sets "
+              f"(the CPU's, on both): {int((m_c >= 0).sum())} matches on "
+              f"the CPU; card vs CPU matches0 equal on {agree:.4f} of the "
+              f"rows, matching scores max|d| {d_ms:.3e}")
+        check(agree >= 0.99 and (m_c >= 0).sum() > 100,
+              "lightglue differs (card vs CPU)")
+
+        dm = [get_dense_matcher("loftr", params=n)[0]
+              for n in nets["loftr_outdoor"]]
+        by_cell = []
+        for m in dm:
+            k0, k1, sc = (a.cpu().numpy() for a in m(rgb[0], rgb[1]))
+            by_cell.append({tuple(c): p for c, p, v in zip(k1, k0, sc)
+                            if v > 0})
+        cells_g, cells_c = by_cell
+        common = cells_g.keys() & cells_c.keys()
+        share = len(common) / max(len(cells_c), 1)
+        d_k0 = max((float(np.abs(cells_g[c] - cells_c[c]).max())
+                    for c in common), default=0.0)
+        ms["loftr"] = time_ms(lambda: dm[0](rgb[0], rgb[1]), 5)
+        print(f"[hloc] loftr on two 640x480 views (512 slots): "
+              f"{len(cells_c)} matches on the CPU, {len(cells_g)} on the "
+              f"card; {share:.4f} of the CPU's image1 cells also the "
+              f"card's, their image0 keypoints max|d| {d_k0:.3e} px")
+        check(len(cells_c) > 100 and share >= 0.98 and d_k0 <= 0.05,
+              "loftr differs (card vs CPU)")
+
+        for conf in ("dir", "openibl", "eigenplaces"):
+            fn = [get_global_descriptor(conf, params=n) for n in nets[conf]]
+            dgc = fn[1](img_c[0]).numpy()
+            dgg = fn[0](img_g[0]).cpu().numpy()
+            d_d = float(np.abs(dgg - dgc).max() / np.abs(dgc).max())
+            ms[conf] = time_ms(lambda: fn[0](img_g[0]), 5)
+            print(f"[hloc] {conf} 640x480: {dgc.shape[0]}-d; card vs CPU "
+                  f"max|d| {d_d:.3e} of the largest entry (tol 1e-4)")
+            check(bool(np.isfinite(dgg).all()) and d_d <= 1e-4,
+                  f"{conf} differs (card vs CPU)")
+        print(f"[hloc] ms per call on the card (median of 5 after a "
+              f"warm-up; {smi}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+        profile("lightglue 2,048 x 2,048",
+                lambda: mt[0](fg[0], fg[1], size, size), 1)
+        profile("loftr pair", lambda: dm[0](rgb[0], rgb[1]), 1)
+        dir_g = get_global_descriptor("dir", params=nets["dir"][0])
+        profile("dir ResNet101", lambda: dir_g(img_g[0]), 1)
+
+        # 2. the sparse and dense front ends through the sfm stage's entry
+        # points, on the card and again on the CPU
+        run_scene.main(["--scene", str(root), "--stage", "prepare"])
+        scene = load_seven_scenes_scene(str(root), model_dir="sparse_dslam/0",
+                                        device=dev)
+        imgs = [load_image(c.image_path) for c in scene.train_cameras]
+        deps = [load_depth(c.depth_path) for c in scene.train_cameras]
+        train_cams = [c.camera for c in scene.train_cameras]
+        queries = [(q.name, load_image(q.image_path), np.array(
+            [[float(q.camera.fx), 0, float(q.camera.cx)],
+             [0, float(q.camera.fy), float(q.camera.cy)], [0, 0, 1.0]]))
+            for q in scene.test_cameras]
+        icfg = SfmInitConfig(match_window=HLOC_WINDOW,
+                             retrieval_k=HLOC_RETRIEVAL)
+
+        def sparse(k):
+            """superpoint_max + lightglue + dir on net k (0 card, 1 CPU)."""
+            on = (dev, cpu)[k]
+            extractor = get_extractor("superpoint_max",
+                                      params=nets["superpoint"][k],
+                                      num_keypoints=icfg.num_keypoints)
+            lg = get_matcher("lightglue", params=nets["lightglue"][k])
+            gdesc = get_global_descriptor("dir", params=nets["dir"][k])
+            fs = (W, H)
+
+            def matcher(f0, f1):
+                return lg(f0, f1, fs, fs)
+
+            t0 = time.perf_counter()
+            mapped = build_point_model(
+                imgs, train_cams, icfg, depth_maps=deps, extractor=extractor,
+                sparse_matcher=matcher, global_desc_fn=gdesc, device=on)
+            t1 = time.perf_counter()
+            res = {n: localize_query_pnp(
+                im, K, mapped, train_cams, icfg, extractor=extractor,
+                sparse_matcher=matcher, global_desc_fn=gdesc, device=on)
+                for n, im, K in queries}
+            return mapped, res, (t1 - t0, time.perf_counter() - t1)
+
+        def dense(k):
+            """loftr + eigenplaces on net k (0 card, 1 CPU)."""
+            on = (dev, cpu)[k]
+            matcher, dcfg = get_dense_matcher(
+                "loftr", params=nets["loftr_outdoor"][k])
+            gdesc = get_global_descriptor("eigenplaces",
+                                          params=nets["eigenplaces"][k])
+            dense_cfg = dataclasses.replace(
+                icfg, dense_max_error=dcfg["max_error"],
+                dense_cell_size=dcfg["cell_size"])
+            t0 = time.perf_counter()
+            mapped = build_point_model(
+                imgs, train_cams, dense_cfg, depth_maps=deps,
+                global_desc_fn=gdesc, dense_matcher=matcher, device=on)
+            t1 = time.perf_counter()
+            res = {n: localize_query_dense(
+                im, K, mapped, train_cams, matcher, imgs, dense_cfg,
+                global_desc_fn=gdesc, device=on) for n, im, K in queries}
+            return mapped, res, (t1 - t0, time.perf_counter() - t1)
+
+        def write_sfm(out: Path, mapped, res) -> None:
+            """The sfm stage's two files, as ``stage_sfm`` writes them."""
+            out.mkdir(parents=True, exist_ok=True)
+            write_pose_results(str(out / "results_dense.txt"),
+                               {n: (q, t) for n, (q, t, _) in res.items()})
+            ok = np.asarray(mapped.valid)
+            np.savez(out / "sfm_points.npz",
+                     points=np.asarray(mapped.points)[ok].astype(np.float32),
+                     colors=np.asarray(mapped.track_colors)[ok].astype(
+                         np.float32))
+
+        def report(label, mapped, res, times):
+            n_pts = int(mapped.valid.sum())
+            errs = {}
+            for n, (q, t, info) in res.items():
+                gt_w = true_w2c[n]
+                errs[n] = pose_errors(quat_to_rotmat(torch.tensor(q)).numpy(),
+                                      t, gt_w[:3, :3], gt_w[:3, 3])
+            print(f"[hloc] {label}: point model {times[0]:.3f} s "
+                  f"({n_pts} points), {len(res)} queries {times[1]:.3f} s; "
+                  + "; ".join(f"{n}: {info['method']} "
+                              f"({info.get('num_inliers', 0)} inl), "
+                              f"{errs[n][0] * 100:.2f} cm / "
+                              f"{errs[n][1]:.3f} deg"
+                              for n, (_, _, info) in res.items()))
+            return n_pts
+
+        runs = {}
+        for label, fn in (("sparse", sparse), ("dense", dense)):
+            runs[label] = (fn(0), fn(1))
+            report(f"{label} front end, card", *runs[label][0])
+            report(f"{label} front end, CPU", *runs[label][1])
+        out_s, out_d = root / "output_tpu", root / "output_dense"
+        write_sfm(out_s, *runs["sparse"][0][:2])
+        write_sfm(out_d, *runs["dense"][0][:2])
+
+        # 3. train on the sparse front end's points, localize from both
+        # front ends' initial poses (K1/K2)
+        loc_iters = []
+
+        def counted(*a, **kw):
+            res = batch(*a, **kw)
+            loc_iters.extend(res.num_iters)
+            return res
+
+        ploc.refine_poses_batch = counted
+        tee = Tee(sys.stdout, sync=torch.cuda.synchronize)
+        map_path = out_s / f"gs_map/iteration_{HLOC_ITERS}/point_cloud.ply"
+        torch.cuda.synchronize()
+        gsl.reset_launches()
+        with contextlib.redirect_stdout(tee):
+            run_scene.main(["--scene", str(root), "--stage", "train",
+                            "--iterations", str(HLOC_ITERS)])
+            _, met_s = run_scene.main([
+                "--scene", str(root), "--stage", "localize",
+                "--iterations", str(HLOC_ITERS)])["localize"]
+            _, met_d = run_scene.main([
+                "--scene", str(root), "--stage", "localize",
+                "--map", str(map_path), "--out", str(out_d)])["localize"]
+        torch.cuda.synchronize()
+        launches = dict(gsl.LAUNCHES)
+        ploc.refine_poses_batch = batch
+        n_held = min(8, N_SCENE_TEST)
+        n_loc = int(sum(loc_iters))
+        want = {"stream_fwd": HLOC_ITERS + n_held + n_loc,
+                "stream_bwd": HLOC_ITERS + n_loc,
+                "pregathered_fwd": 0, "pregathered_bwd": 0}
+        log = tee.text()
+        n_init = re.findall(r"initialized from (\d+) sfm points", log)
+        print(f"[hloc] train from {n_init} sfm points, then localize from "
+              f"the sparse and the dense initial poses: launches "
+              f"{launches}; expected {want} ({HLOC_ITERS} steps, {n_held} "
+              f"held-out renders, {n_loc} localize iterations); metrics "
+              f"sparse {met_s}, dense {met_d}")
+        check(len(n_init) == 1, "train did not start from the sparse front "
+              "end's points")
+        check(launches == want and n_loc > 0,
+              f"hloc launches {launches} != {want}")
+        for out in (out_s, out_d):
+            on_disk = json.loads((out / "metrics.json").read_text())
+            check(all(np.isfinite(v) for v in on_disk.values()),
+                  f"non-finite metrics {on_disk}")
+
+        # 4. the card against the CPU: points, methods, initial poses
+        for label, ((m_g, r_g, _), (m_c, r_c, _)) in runs.items():
+            n_g, n_c = int(m_g.valid.sum()), int(m_c.valid.sum())
+            meth_g = {n: i["method"] for n, (_, _, i) in r_g.items()}
+            meth_c = {n: i["method"] for n, (_, _, i) in r_c.items()}
+            pose_d = [pose_errors(
+                quat_to_rotmat(torch.tensor(r_g[n][0])).numpy(), r_g[n][1],
+                quat_to_rotmat(torch.tensor(r_c[n][0])).numpy(), r_c[n][1])
+                for n in test_names]
+            print(f"[hloc] {label} sfm card vs CPU: valid points {n_g} vs "
+                  f"{n_c}; methods equal {meth_g == meth_c}; init poses "
+                  f"apart at most {max(d[0] for d in pose_d) * 100:.4f} cm / "
+                  f"{max(d[1] for d in pose_d):.5f} deg")
+            check(n_c > 0 and abs(n_g - n_c) <= 0.02 * n_c,
+                  f"{label} sfm points differ")
+            check(meth_g == meth_c, f"{label} methods {meth_g} != {meth_c}")
+            check(all(d[0] <= 0.05 and d[1] <= 1.0 for d in pose_d),
+                  f"{label} init poses differ by more than 5 cm / 1 deg")
+        print(f"[hloc] phase time {time.perf_counter() - t_phase:.1f} s")
+        return launches
+    finally:
+        ploc.refine_poses_batch = batch
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -2561,6 +3103,10 @@ def main() -> None:
     with phase("learned front end (networks on the card)"):
         launches_learned = learned_front_end(g, cam, cfg, dev)
 
+    # ---- the rest of hloc's learned confs: networks, both front ends ------
+    with phase("hloc confs (networks on the card)"):
+        launches_hloc = hloc_confs(g, cam, cfg, dev)
+
     # ---- timing at the bench shapes -----------------------------------------
     with phase("timing"):
         clocks = "clocks.sm,clocks.max.sm"
@@ -2678,18 +3224,21 @@ def main() -> None:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None}
 
-    # K1/K2 run on six paths: localization, few-shot training, the viewer,
-    # the scene runner's stream training and localization, its four stages
-    # in one call, and the four stages with the learned front end (each
+    # K1/K2 run on seven paths: localization, few-shot training, the
+    # viewer, the scene runner's stream training and localization, its four
+    # stages in one call, the four stages with the learned front end, and
+    # training and localization from the hloc confs' front ends (each
     # counted from 0 over its own run)
     k12_launches = {k: launches_loc[k] + launches_fs[k] + launches_view[k]
                     + launches_scene_train[k] + launches_scene_loc[k]
                     + launches_all[k] + launches_learned[k]
+                    + launches_hloc[k]
                     for k in ("stream_fwd", "stream_bwd")}
     print(f"K1/K2 launches: localization {launches_loc}, few-shot training "
           f"{launches_fs}, viewer {launches_view}, scene runner train "
           f"{launches_scene_train}, localize {launches_scene_loc}, all "
-          f"stages {launches_all}, learned front end {launches_learned}")
+          f"stages {launches_all}, learned front end {launches_learned}, "
+          f"hloc confs {launches_hloc}")
     kernels = [
         entry("stream_fwd", "stream_blend.cu",
               "gs_localization_tpu/raster/stream_blend.py:85",

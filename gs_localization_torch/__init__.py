@@ -19,8 +19,9 @@ is found by path:
 - ``sfm``       : the SfM front end: classical (Harris / SIFT features,
                   matching, retrieval, triangulation, PnP, bundle
                   adjustment, incremental mapping) and learned
-                  (SuperPoint, SuperGlue, NetVLAD; the checkpoint manifest
-                  and hloc's conf registry), pose-error metrics,
+                  (SuperPoint, SuperGlue, LightGlue, LoFTR, D2-Net, R2D2,
+                  DISK, NetVLAD, DIR, OpenIBL, EigenPlaces; the checkpoint
+                  manifest and hloc's conf registry), pose-error metrics,
                   pose-result files.
 - ``pipelines`` : query localization, map training, SfM initialization,
                   the scene runner.

@@ -120,10 +120,11 @@ def build_point_model(
     are Harris on its grayscale and the tiny-image descriptor.
 
     ``dense_matcher(img0, img1) -> (kpts0 (M,2), kpts1 (M,2), scores (M,))``
-    (numpy images, as given) switches mapping to the dense path (reference
-    match_dense.py 'loftr' conf family): per-pair semi-dense correspondences
-    are quantized into shared per-image keypoints (sfm/match_dense.py)
-    before track building.
+    (numpy images, as given; arrays or tensors back, e.g. the registry's
+    ``get_dense_matcher("loftr", params=net)``) switches mapping to the
+    dense path (reference match_dense.py 'loftr' conf family): per-pair
+    semi-dense correspondences are quantized into shared per-image
+    keypoints (sfm/match_dense.py) before track building.
 
     ``sparse_matcher(feats0, feats1) -> result with .matches0`` replaces
     the mutual-NN descriptor matching with a learned matcher, e.g. the
@@ -155,7 +156,7 @@ def build_point_model(
         dense = {}
         for (a, b) in pair_idx:
             k0, k1, sc = dense_matcher(images[a], images[b])
-            dense[(a, b)] = (np.asarray(k0), np.asarray(k1), np.asarray(sc))
+            dense[(a, b)] = (_host(k0), _host(k1), _host(sc))
         kp_of, kp_scores, dmatches = aggregate_dense_matches(
             dense, max_error=cfg.dense_max_error,
             cell_size=cfg.dense_cell_size, max_kps=cfg.dense_max_kps)
@@ -350,9 +351,9 @@ def localize_query_dense(
         if j not in obs_of:
             continue
         k_q, k_j, sc = dense_matcher(query_image, train_images[j])
-        k_q = np.asarray(k_q, np.float64).reshape(-1, 2)
-        k_j = np.asarray(k_j, np.float64).reshape(-1, 2)
-        sc = np.asarray(sc, np.float64).reshape(-1)
+        k_q = _host(k_q).astype(np.float64).reshape(-1, 2)
+        k_j = _host(k_j).astype(np.float64).reshape(-1, 2)
+        sc = _host(sc).astype(np.float64).reshape(-1)
         live = sc > 0
         k_q, k_j = k_q[live], k_j[live]
         ids_j = assign_to_fixed(k_j, _host(mapped.features[j].keypoints),

@@ -20,6 +20,11 @@ classical front end, which needs no weights:
 - ``superpoint`` / ``superglue`` / ``netvlad``: the learned front end
                   (SuperPoint features, SuperGlue matching, NetVLAD
                   retrieval) as ``nn.Module``s on an explicit device.
+- ``lightglue`` / ``loftr``: LightGlue matching and the LoFTR dense
+                  matcher.
+- ``d2net`` / ``r2d2`` / ``disk``: the D2-Net, R2D2 and DISK extractors.
+- ``dir`` / ``openibl`` / ``eigenplaces``: the DIR, OpenIBL and
+                  EigenPlaces / CosPlace global descriptors.
 - ``weights`` / ``registry``: the official checkpoint manifest and loader,
                   and hloc's conf names -> extractors, matchers, global
                   descriptors.

@@ -12,10 +12,12 @@ network that ``weights.load`` returns as ``params``; classical confs
   matcher = get_matcher("superglue", params=sg_net)
   res = matcher(feats0, feats1, shape0, shape1)   # -> SuperGlueResult
 
+  matcher, cfg = get_dense_matcher("loftr", params=loftr_net)
+  kpts0, kpts1, scores = matcher(image0, image1)
+
 Images may be tensors (they run on their own device) or numpy arrays (they
-go to the network's device, else to ``device``). Kinds whose networks are
-not ported yet (lightglue, loftr, r2d2, d2net, disk, dir, openibl,
-eigenplaces) raise ``NotImplementedError``.
+go to the network's device, else to ``device``). Every kind of the JAX
+package's registry is served.
 """
 
 from __future__ import annotations
@@ -27,8 +29,6 @@ import torch
 
 from .. import resolve_device
 from .features import Features, extract_harris_features, rgb_to_gray
-
-_TODO = "is not ported yet (ROADMAP.md §1 item 5, networks)"
 
 # extractor conf name -> (module kind, default kwargs). Mirrors hloc's
 # superpoint_{aachen,max,inloc}, r2d2, d2net-ss, sift, disk confs.
@@ -93,6 +93,11 @@ def _gray(img, dev) -> torch.Tensor:
     return rgb_to_gray(img) if img.ndim == 3 else img
 
 
+def _rgb(img, dev) -> torch.Tensor:
+    img = _tensor(img, dev)
+    return torch.stack([img, img, img], -1) if img.ndim == 2 else img
+
+
 def get_extractor(conf: str, params: Optional[Any] = None, device="cuda",
                   **overrides) -> Callable[[Any], Features]:
     """Returns ``extractor(image_rgb_or_gray) -> Features``."""
@@ -109,16 +114,33 @@ def get_extractor(conf: str, params: Optional[Any] = None, device="cuda",
 
         return lambda img: extract_sift(
             _gray(img, device), num_keypoints=cfg["num_keypoints"])
-    if kind != "superpoint":
-        raise NotImplementedError(f"extractor kind '{kind}' {_TODO}")
     if params is None:
         raise ValueError(f"conf '{conf}' needs a loaded network (params)")
-    from .superpoint import extract_superpoint
-
     dev = _device_of(params)
-    return lambda img: extract_superpoint(
-        params, _gray(img, dev), num_keypoints=cfg["num_keypoints"],
-        nms_radius=cfg.get("nms_radius", 4))
+    n = cfg["num_keypoints"]
+    if kind == "superpoint":
+        from .superpoint import extract_superpoint
+
+        return lambda img: extract_superpoint(
+            params, _gray(img, dev), num_keypoints=n,
+            nms_radius=cfg.get("nms_radius", 4))
+    if kind == "r2d2":
+        from .r2d2 import extract_r2d2
+
+        return lambda img: extract_r2d2(params, _rgb(img, dev),
+                                        num_keypoints=n)
+    if kind == "d2net":
+        from .d2net import extract_d2net
+
+        return lambda img: extract_d2net(params, _rgb(img, dev),
+                                         num_keypoints=n)
+    if kind == "disk":
+        from .disk import extract_disk
+
+        return lambda img: extract_disk(
+            params, _rgb(img, dev), num_keypoints=n,
+            window_size=cfg.get("nms_window_size", 5))
+    raise KeyError(kind)
 
 
 def get_matcher(conf: str, params: Optional[Any] = None, **overrides):
@@ -141,17 +163,23 @@ def get_matcher(conf: str, params: Optional[Any] = None, **overrides):
         return lambda f0, f1, s0=None, s1=None: match_mutual_nn(
             f0.descriptors, f1.descriptors, f0.scores > 0, f1.scores > 0,
             ratio_thresh=cfg["ratio_thresh"])
-    if kind != "superglue":
-        raise NotImplementedError(f"matcher kind '{kind}' {_TODO}")
     if params is None:
         raise ValueError(f"conf '{conf}' needs a loaded network (params)")
-    from .superglue import superglue_match
+    if kind == "superglue":
+        from .superglue import superglue_match
 
-    return lambda f0, f1, s0, s1: superglue_match(
-        params, f0.keypoints, f0.scores, f0.descriptors,
-        f1.keypoints, f1.scores, f1.descriptors,
-        s0[0], s0[1], s1[0], s1[1],
-        sinkhorn_iters=cfg["sinkhorn_iterations"])
+        return lambda f0, f1, s0, s1: superglue_match(
+            params, f0.keypoints, f0.scores, f0.descriptors,
+            f1.keypoints, f1.scores, f1.descriptors,
+            s0[0], s0[1], s1[0], s1[1],
+            sinkhorn_iters=cfg["sinkhorn_iterations"])
+    if kind == "lightglue":
+        from .lightglue import lightglue_match
+
+        return lambda f0, f1, s0, s1: lightglue_match(
+            params, f0.keypoints, f0.descriptors,
+            f1.keypoints, f1.descriptors, s0[0], s0[1], s1[0], s1[1])
+    raise KeyError(kind)
 
 
 def get_dense_matcher(conf: str, params: Optional[Any] = None,
@@ -162,8 +190,21 @@ def get_dense_matcher(conf: str, params: Optional[Any] = None,
     if conf not in DENSE_CONFS:
         raise KeyError(f"unknown dense conf '{conf}'; "
                        f"have {sorted(DENSE_CONFS)}")
-    kind = DENSE_CONFS[conf]["kind"]
-    raise NotImplementedError(f"dense matcher kind '{kind}' {_TODO}")
+    cfg = {**DENSE_CONFS[conf], **overrides}
+    kind = cfg.pop("kind")
+    if params is None:
+        raise ValueError(f"conf '{conf}' needs a loaded network (params)")
+    if kind != "loftr":
+        raise KeyError(kind)
+    from .loftr import loftr_match
+
+    dev = _device_of(params)
+
+    def matcher(img0, img1):
+        m = loftr_match(params, _gray(img0, dev), _gray(img1, dev))
+        return m.kpts0, m.kpts1, m.scores
+
+    return matcher, cfg
 
 
 def get_global_descriptor(conf: str, params: Optional[Any] = None,
@@ -176,11 +217,21 @@ def get_global_descriptor(conf: str, params: Optional[Any] = None,
         from .features import tiny_image_descriptor
 
         return lambda img: tiny_image_descriptor(_tensor(img, device))
-    if kind != "netvlad":
-        raise NotImplementedError(f"retrieval kind '{kind}' {_TODO}")
     if params is None:
         raise ValueError(f"'{conf}' needs a loaded network (params)")
+    dev = _device_of(params)
+    if kind == "dir":
+        from .dir import dir_descriptor
+
+        return lambda img: dir_descriptor(params, _rgb(img, dev))
+    if kind == "openibl":
+        from .openibl import openibl_descriptor
+
+        return lambda img: openibl_descriptor(params, _rgb(img, dev))
+    if kind == "eigenplaces":
+        from .eigenplaces import eigenplaces_descriptor
+
+        return lambda img: eigenplaces_descriptor(params, _rgb(img, dev))
     from .netvlad import netvlad_descriptor
 
-    dev = _device_of(params)
     return lambda img: netvlad_descriptor(params, _tensor(img, dev))

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from .. import float32_exact, resolve_device
+from ..ops.param_tree import load_named
 
 DIM = 256
 NUM_HEADS = 4
@@ -267,13 +268,4 @@ def load_superglue(state_dict: Dict[str, Any], device="cuda") -> SuperGlueNet:
     net. Every parameter and statistic must be present; the batch norms'
     ``num_batches_tracked`` counters, which inference does not read, may
     be absent."""
-    net = SuperGlueNet(device)
-    sd = {k: torch.as_tensor(np.asarray(v)) for k, v in state_dict.items()}
-    sd = {k: v.to(torch.float32) if v.is_floating_point() else v
-          for k, v in sd.items()}
-    missing, unexpected = net.load_state_dict(sd, strict=False)
-    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
-    if missing or unexpected:
-        raise KeyError(f"superglue state dict: missing {missing}, "
-                       f"unexpected {unexpected}")
-    return net
+    return load_named(SuperGlueNet(device), state_dict, "superglue")

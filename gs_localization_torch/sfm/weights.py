@@ -13,10 +13,7 @@ or, for every manifest file found in a directory:
 
 which loads each recognised file, prints its parameter count and a sha256
 (record it the first time; pin it thereafter), and exits non-zero if a
-present file fails to load. Five rows load into port networks
-(SuperPoint, SuperGlue indoor / outdoor, NetVLAD, DPT_Hybrid, MiDaS
-v2.1); the networks of the other rows are not ported yet and raise
-``NotImplementedError``.
+present file fails to load. Every row loads into a port network.
 
 ``write_random`` writes a checkpoint of random weights made from a seed at
 the official shapes, under the official name and in the official format,
@@ -34,9 +31,6 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
-
-_TODO = "(ROADMAP.md §1 item 5, networks)"
-
 
 def _torch_sd(path: str) -> Dict[str, Any]:
     """A torch checkpoint as a flat name -> tensor dict (CPU).
@@ -79,9 +73,49 @@ def _sg(path, device):
     return load_superglue(_torch_sd(path), device)
 
 
+def _lg(path, device):
+    from .lightglue import load_lightglue
+    return load_lightglue(_torch_sd(path), device)
+
+
+def _loftr(path, device):
+    from .loftr import load_loftr
+    return load_loftr(_torch_sd(path), device)
+
+
+def _d2(path, device):
+    from .d2net import load_d2net
+    return load_d2net(_torch_sd(path), device)
+
+
+def _r2d2(path, device):
+    from .r2d2 import load_r2d2
+    return load_r2d2(_torch_sd(path), device)
+
+
+def _disk(path, device):
+    from .disk import load_disk
+    return load_disk(_torch_sd(path), device)
+
+
 def _netvlad(path, device):
     from .netvlad import load_netvlad_mat
     return load_netvlad_mat(path, device)
+
+
+def _dir(path, device):
+    from .dir import load_dir
+    return load_dir(_torch_sd(path), device=device)
+
+
+def _openibl(path, device):
+    from .openibl import load_openibl
+    return load_openibl(_torch_sd(path), device)
+
+
+def _eigen(path, device):
+    from .eigenplaces import load_eigenplaces
+    return load_eigenplaces(_torch_sd(path), arch="resnet50", device=device)
 
 
 def _dpt(path, device):
@@ -92,13 +126,6 @@ def _dpt(path, device):
 def _midas(path, device):
     from ..ops.midas import load_midas
     return load_midas(_torch_sd(path), device)
-
-
-def _not_ported(name: str):
-    def load(path, device):
-        raise NotImplementedError(
-            f"the {name} network is not ported yet {_TODO}")
-    return load
 
 
 MANIFEST: Dict[str, WeightSpec] = {
@@ -120,23 +147,23 @@ MANIFEST: Dict[str, WeightSpec] = {
     "lightglue": WeightSpec(
         "superpoint_lightglue.pth",
         "github.com/cvg/LightGlue (release asset superpoint_lightglue.pth)",
-        _not_ported("lightglue")),
+        _lg),
     "loftr_outdoor": WeightSpec(
         "outdoor_ds.ckpt",
         "github.com/zju3dv/LoFTR (release weights, outdoor_ds.ckpt)",
-        _not_ported("loftr_outdoor")),
+        _loftr),
     "d2net": WeightSpec(
         "d2_tf.pth",
         "dsmn.ml/files/d2-net/d2_tf.pth (github.com/mihaidusmanu/d2-net)",
-        _not_ported("d2net")),
+        _d2),
     "r2d2": WeightSpec(
         "r2d2_WASF_N16.pt",
         "github.com/naver/r2d2 (models/r2d2_WASF_N16.pt)",
-        _not_ported("r2d2")),
+        _r2d2),
     "disk": WeightSpec(
         "depth-save.pth",
         "github.com/cvlab-epfl/disk (depth-save.pth release)",
-        _not_ported("disk")),
+        _disk),
     "netvlad": WeightSpec(
         "Pitts30K_struct.mat",
         "cvg-data.inf.ethz.ch/hloc/netvlad/Pitts30K_struct.mat "
@@ -145,15 +172,15 @@ MANIFEST: Dict[str, WeightSpec] = {
     "dir": WeightSpec(
         "Resnet101-AP-GeM-LM18.pt",
         "github.com/naver/deep-image-retrieval (Resnet101-AP-GeM-LM18)",
-        _not_ported("dir")),
+        _dir),
     "openibl": WeightSpec(
         "vgg16_netvlad.pth",
         "github.com/yxgeee/OpenIBL (hub vgg16_netvlad)",
-        _not_ported("openibl")),
+        _openibl),
     "eigenplaces": WeightSpec(
         "ResNet50_2048_eigenplaces.pth",
         "github.com/gmberton/EigenPlaces (hub ResNet50, fc_output_dim 2048)",
-        _not_ported("eigenplaces")),
+        _eigen),
     "dpt_hybrid": WeightSpec(
         "dpt_hybrid-midas-501f0c75.pt",
         "github.com/isl-org/MiDaS (release dpt_hybrid-midas-501f0c75.pt)",
@@ -211,6 +238,10 @@ def check_dir(wdir: str, device="cuda") -> Dict[str, str]:
 
 
 # --------------------------------------------------- random checkpoints ----
+def _state(net: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+
 def write_random(name: str, wdir: str, seed: int = 0) -> str:
     """Write random weights made from ``seed`` as the official checkpoint of
     ``name`` (its shapes, file name and format) into ``wdir``; returns the
@@ -220,11 +251,27 @@ def write_random(name: str, wdir: str, seed: int = 0) -> str:
     initialises the JAX package's net) and zero biases, the detector's
     logits scaled by 100: a trained detector's scores are peaked, and at
     an untrained one's they all sit near 1 / 65, below the localize
-    masks' 0.2 and often tied. SuperGlue: PyTorch's default
-    initialisation (batch norms at their initial statistics). NetVLAD, DPT
-    and MiDaS: the JAX package's ``init_params`` draws."""
+    masks' 0.2 and often tied. R2D2: the JAX package's ``init_params``
+    recipe (He-normal convs, heads at 0.1, zero biases): at PyTorch's
+    default initialisation the reliability stays near 0.5, below the 0.7
+    threshold, and nothing is detected. NetVLAD, DPT and MiDaS: the JAX
+    package's ``init_params`` draws. Every other row: PyTorch's default
+    initialisation (batch norms at their initial statistics). Each row
+    is written in the file layout that both packages' ``load`` read:
+
+    - LightGlue: the published naming (``self_attn.{i}.*``,
+      ``cross_attn.{i}.*``, ``log_assignment.{i}.*``) and the
+      ``token_confidence.{i}`` heads, which inference does not read;
+    - LoFTR (``.ckpt``): ``{"state_dict": {"matcher.<name>": ...}}``;
+    - D2-Net: ``{"model": {"dense_feature_extraction.model.{i}.*"}}``;
+    - R2D2 and DIR (dirtorch's ``.pt``): ``{"state_dict": ...}`` beside
+      the net's description; the keys without the ``module.`` prefix of
+      the released files, which the JAX package's converters do not cut;
+    - DISK and EigenPlaces: the flat state dict; OpenIBL:
+      ``{"state_dict": ...}``."""
     spec = MANIFEST[name]
     path = os.path.join(wdir, spec.file)
+    torch.manual_seed(seed)
     if name == "superpoint":
         from .superpoint import SuperPointNet
 
@@ -244,8 +291,60 @@ def write_random(name: str, wdir: str, seed: int = 0) -> str:
     elif name in ("superglue_outdoor", "superglue_indoor"):
         from .superglue import SuperGlueNet
 
-        torch.manual_seed(seed)
         torch.save(SuperGlueNet("cpu").state_dict(), path)
+    elif name == "lightglue":
+        from .lightglue import DIM, NUM_LAYERS, LightGlueNet, \
+            lightglue_state_dict
+
+        sd = lightglue_state_dict(LightGlueNet("cpu"))
+        for i in range(NUM_LAYERS - 1):
+            head = torch.nn.Linear(DIM, 1)
+            sd[f"token_confidence.{i}.token.0.weight"] = head.weight.detach()
+            sd[f"token_confidence.{i}.token.0.bias"] = head.bias.detach()
+        torch.save(sd, path)
+    elif name == "loftr_outdoor":
+        from .loftr import LoFTRNet
+
+        torch.save({"state_dict": {f"matcher.{k}": v for k, v in
+                                   _state(LoFTRNet("cpu")).items()}}, path)
+    elif name == "d2net":
+        from .d2net import D2Net
+
+        torch.save({"model": _state(D2Net("cpu"))}, path)
+    elif name == "r2d2":
+        from .r2d2 import R2D2Net
+
+        net, rng = R2D2Net("cpu"), np.random.default_rng(seed)
+        convs = [m for m in net.ops if isinstance(m, torch.nn.Conv2d)]
+        with torch.no_grad():
+            for conv in convs + [net.clf, net.sal]:
+                cout, cin, kh, kw = conv.weight.shape
+                std = (0.1 if conv in (net.clf, net.sal)
+                       else np.sqrt(2.0 / (kh * kw * cin)))
+                conv.weight.copy_(torch.from_numpy(
+                    (std * rng.standard_normal((cout, cin, kh, kw))
+                     ).astype(np.float32)))
+                conv.bias.zero_()
+        torch.save({"net": "Quad_L2Net_ConfCFS()",
+                    "state_dict": _state(net)}, path)
+    elif name == "disk":
+        from .disk import DiskNet
+
+        torch.save(_state(DiskNet("cpu")), path)
+    elif name == "dir":
+        from .dir import DirNet
+
+        torch.save({"arch": "resnet101_rmac",
+                    "state_dict": _state(DirNet("resnet101", 2048, "cpu"))},
+                   path)
+    elif name == "openibl":
+        from .openibl import OpenIBLNet
+
+        torch.save({"state_dict": _state(OpenIBLNet("cpu"))}, path)
+    elif name == "eigenplaces":
+        from .eigenplaces import EigenPlacesNet
+
+        torch.save(_state(EigenPlacesNet("resnet50", 2048, "cpu")), path)
     elif name == "netvlad":
         from .netvlad import init_params, write_netvlad_mat
 
@@ -261,8 +360,7 @@ def write_random(name: str, wdir: str, seed: int = 0) -> str:
         sd = midas_state_dict(init_params(np.random.default_rng(seed)))
         torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
     else:
-        raise NotImplementedError(
-            f"the {name} network is not ported yet {_TODO}")
+        raise KeyError(name)
     return path
 
 

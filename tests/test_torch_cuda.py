@@ -761,3 +761,135 @@ def test_networks_cuda_match_cpu(cuda_device):
         scale = float(ec.abs().max())
         np.testing.assert_allclose(eg.cpu().numpy() / scale,
                                    ec.numpy() / scale, atol=5e-4)
+
+
+def _rgb_blobs(seed: int, h: int, w: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return np.stack([_blobs(rng, h, w, 400) for _ in range(3)], -1)
+
+
+def _write_and_load(name, wdir, device):
+    from gs_localization_torch.sfm import weights
+
+    path = weights.write_random(name, str(wdir), seed=0)
+    return weights.load(name, path, device="cpu"), weights.load(
+        name, path, device=device)
+
+
+def test_hloc_extractors_cuda_match_cpu(cuda_device, tmp_path):
+    """r2d2, d2net-ss and disk at 240x320 from ``write_random``'s
+    checkpoints: the dense outputs within 1e-4 of their scale, the keypoint
+    counts within 1 % and >= 0.99 of the CPU's keypoints within 1e-3 px of
+    one of the card's (near-ties in the NMS or at the top-k cut move later
+    slots, so keypoints are compared as sets; D2-Net's are sub-pixel)."""
+    from gs_localization_torch.sfm.d2net import dense_features
+    from gs_localization_torch.sfm.disk import unet_forward
+    from gs_localization_torch.sfm.r2d2 import r2d2_forward
+    from gs_localization_torch.sfm.registry import get_extractor
+
+    img = torch.tensor(_rgb_blobs(5, 240, 320))
+    for conf, name, dense in (("r2d2", "r2d2", r2d2_forward),
+                              ("d2net-ss", "d2net", dense_features),
+                              ("disk", "disk", unet_forward)):
+        net_c, net_g = _write_and_load(name, tmp_path, cuda_device)
+        fc = get_extractor(conf, params=net_c, num_keypoints=2048)(img)
+        fg = get_extractor(conf, params=net_g, num_keypoints=2048)(
+            img.to(cuda_device))
+        with torch.no_grad(), gsl.float32_exact():
+            oc, og = dense(net_c, img), dense(net_g, img.to(cuda_device))
+        oc, og = (oc, og) if isinstance(oc, tuple) else ((oc,), (og,))
+        for a, b in zip(oc, og):
+            scale = float(a.abs().max())
+            assert float((b.cpu() - a).abs().max()) <= 1e-4 * scale, conf
+        ref = fc.keypoints.numpy()[fc.scores.numpy() > 0]
+        got = fg.keypoints.cpu().numpy()
+        near = np.abs(ref[:, None] - got[None]).max(-1).min(1) <= 1e-3
+        n_g = int((fg.scores > 0).sum())
+        assert len(ref) > 100 and abs(n_g - len(ref)) <= 0.01 * len(ref), conf
+        assert near.mean() >= 0.99, conf
+
+
+def test_hloc_matchers_cuda_match_cpu(cuda_device):
+    """LightGlue (512 keypoints a side, PyTorch's default init) and LoFTR
+    (``chip_smoke.sharp_loftr_params``, census matching, on two shifted
+    240x320 views, 256 slots) on the card against the CPU: the same
+    matches on >= 0.99 of the rows / cells, scores within 1e-4, LoFTR's
+    sub-pixel keypoints within 0.05 px."""
+    from chip_smoke import sharp_loftr_params
+    from gs_localization_torch.sfm.features import rgb_to_gray
+    from gs_localization_torch.sfm.lightglue import (LightGlueNet,
+                                                     lightglue_match)
+    from gs_localization_torch.sfm.loftr import (loftr_from_jax_params,
+                                                 loftr_match)
+
+    rng = np.random.default_rng(6)
+    torch.manual_seed(0)
+    lg = LightGlueNet("cpu")
+    kp = [torch.tensor(rng.uniform(0, 480, (512, 2)), dtype=torch.float32)
+          for _ in range(2)]
+    de = [torch.nn.functional.normalize(torch.randn(512, 256), dim=1)
+          for _ in range(2)]
+    args = (kp[0], de[0], kp[1], de[1], 640, 480, 640, 480)
+    rc = lightglue_match(lg, *args, match_threshold=0.0)
+    rg = lightglue_match(lg.to(cuda_device), *[
+        a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+        for a in args], match_threshold=0.0)
+    assert float((rg.matches0.cpu() == rc.matches0).float().mean()) >= 0.99
+    np.testing.assert_allclose(rg.matching_scores0.cpu().numpy(),
+                               rc.matching_scores0.numpy(), atol=1e-4)
+
+    big = _rgb_blobs(7, 256, 336)
+    views = [torch.tensor(big[:240, :320]), torch.tensor(big[5:245, 3:323])]
+    gray = [rgb_to_gray(v) for v in views]
+    params = sharp_loftr_params(0)
+    out = []
+    for dev in ("cpu", cuda_device):
+        net = loftr_from_jax_params(params, dev)
+        m = loftr_match(net, *[g.to(dev) for g in gray], max_matches=256)
+        k0, k1, sc = (a.cpu().numpy() for a in m)
+        out.append({tuple(c): (p, s) for c, p, s in zip(k1, k0, sc)
+                    if s > 0})
+    cells_c, cells_g = out
+    common = cells_c.keys() & cells_g.keys()
+    assert len(cells_c) > 50 and len(common) >= 0.99 * len(cells_c)
+    for c in common:
+        assert np.abs(cells_g[c][0] - cells_c[c][0]).max() <= 0.05
+        assert abs(cells_g[c][1] - cells_c[c][1]) <= 1e-4
+
+
+def test_hloc_global_descriptors_cuda_match_cpu(cuda_device):
+    """DIR (resnet18 with a PCA whitening), OpenIBL and EigenPlaces
+    (resnet18) at PyTorch's default init on a 128x160 image: the card's
+    descriptor within 1e-4 of the CPU's largest entry."""
+    from gs_localization_torch.sfm.dir import (DirNet, dir_descriptor,
+                                               load_pca_from_sklearn)
+    from gs_localization_torch.sfm.eigenplaces import (
+        EigenPlacesNet, eigenplaces_descriptor)
+    from gs_localization_torch.sfm.openibl import (OpenIBLNet,
+                                                   openibl_descriptor)
+
+    class PCA:
+        rng = np.random.default_rng(8)
+        mean_ = 0.01 * rng.standard_normal(256).astype(np.float32)
+        components_ = np.linalg.qr(rng.standard_normal((256, 256)))[0].T
+        explained_variance_ = np.linspace(2.0, 0.1, 256).astype(np.float32)
+
+    img = torch.tensor(_rgb_blobs(9, 128, 160))
+    torch.manual_seed(0)
+    pca = load_pca_from_sklearn(PCA)
+    for make, fn in (
+            (lambda: DirNet("resnet18", 256, "cpu"), dir_descriptor),
+            (lambda: OpenIBLNet("cpu"), openibl_descriptor),
+            (lambda: EigenPlacesNet("resnet18", 256, "cpu"),
+             eigenplaces_descriptor)):
+        net = make()
+        if isinstance(net, DirNet):
+            net.set_pca(pca)
+        dc = fn(net, img)
+        net = net.to(cuda_device)
+        if isinstance(net, DirNet):
+            net.set_pca(pca)
+        dg = fn(net, img.to(cuda_device))
+        assert bool(torch.isfinite(dg).all())
+        assert float((dg.cpu() - dc).abs().max()) <= 1e-4 * float(
+            dc.abs().max())

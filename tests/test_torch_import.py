@@ -55,7 +55,9 @@ def test_scan_covers_the_package():
             "sift.py", "matching.py", "retrieval.py", "pairs.py",
             "triangulate.py", "pnp.py", "bundle_adjust.py", "incremental.py",
             "adalam.py", "match_dense.py", "evaluate.py",
-            "sfm_init.py"} <= names
+            "sfm_init.py", "lightglue.py", "loftr.py", "d2net.py",
+            "r2d2.py", "disk.py", "dir.py", "openibl.py",
+            "eigenplaces.py"} <= names
 
 
 def test_imports_without_nvcc_or_triton(tmp_path):
@@ -215,3 +217,21 @@ def test_sfm_entry_points_default_to_cuda(no_cuda):
                         device="cpu").descriptors.shape == (32, 128)
     assert top_k_retrieval(img[:2], img[:5], k=2, device="cpu")[0].shape \
         == (2, 2)
+
+
+@pytest.mark.parametrize("module,cls", [
+    ("lightglue", "LightGlueNet"), ("loftr", "LoFTRNet"), ("d2net", "D2Net"),
+    ("r2d2", "R2D2Net"), ("disk", "DiskNet"), ("dir", "DirNet"),
+    ("openibl", "OpenIBLNet"), ("eigenplaces", "EigenPlacesNet")])
+def test_networks_default_to_cuda(no_cuda, module, cls):
+    """hloc's networks are built on the card unless asked for the CPU."""
+    import importlib
+
+    net_cls = getattr(importlib.import_module(
+        f"gs_localization_torch.sfm.{module}"), cls)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        net_cls()
+    net = net_cls(device="cpu")
+    assert not net.training
+    assert {p.device.type for p in net.parameters()} == {"cpu"}
+    assert not any(p.requires_grad for p in net.parameters())

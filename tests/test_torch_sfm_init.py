@@ -216,3 +216,66 @@ def test_dense_path_matches_jax():
     _same_pose(rj, rt)
     assert rt[2]["method"] == "pnp"
     assert np.linalg.norm(rt[1] - np.asarray(qcam.w2c)[:3, 3]) < 0.05
+
+
+@pytest.fixture(scope="module")
+def speckle_world():
+    """A dense speckle of small Gaussians (as the card phase's bench map
+    renders) and 5 views at 256x192: LoFTR's 512 slots need as many coarse
+    cells, and its 8-px cells need texture."""
+    rng = np.random.default_rng(31)
+    g = random_scene(rng, n=6000, sh_degree=1, spread=1.6,
+                     z_range=(3.0, 6.0), scale_range=(-4.0, -3.0))
+    views = []
+    for _ in range(5):
+        tau = np.zeros(6, np.float32)
+        tau[:3] = 0.06 * rng.standard_normal(3)
+        tau[3:] = 0.015 * rng.standard_normal(3)
+        views.append(make_camera(256, 192, fov=1.0).with_delta(
+            jnp.asarray(tau)))
+    render = jax.jit(lambda g, c: rasterize(g, c, CFG))
+    return views, [np.asarray(render(g, c).color) for c in views]
+
+
+def test_loftr_dense_path_matches_jax(speckle_world):
+    """build_point_model(dense_matcher=...) and localize_query_dense with
+    the registry's LoFTR conf in both packages, on the same weights: the
+    census-matching LoFTR of ``chip_smoke.sharp_loftr_params`` (at random
+    weights no pair matches). LoFTR's image0 keypoints differ between the
+    packages by ~3e-4 px, so an aggregated keypoint can fall on the other
+    side of a 1-px quantization boundary: the point models are compared by
+    their tracks' observations (counts within 1 %, 95 % of the tracks
+    shared, points within 1e-4), the poses within 1e-3."""
+    from chip_smoke import sharp_loftr_params
+    from gs_localization_tpu.sfm.registry import get_dense_matcher as jget
+    from gs_localization_torch.sfm.loftr import loftr_from_jax_params
+    from gs_localization_torch.sfm.registry import get_dense_matcher as tget
+
+    views, renders = speckle_world
+    params = sharp_loftr_params(0)
+    jm, jcfg = jget("loftr", params=params)
+    tm, tcfg = tget("loftr", params=loftr_from_jax_params(params, "cpu"))
+    assert tcfg == jcfg
+    kw = dict(dense_max_error=jcfg["max_error"],
+              dense_cell_size=jcfg["cell_size"], match_window=3,
+              retrieval_k=2)
+    n = 4
+    tviews = [camera_to_torch(v) for v in views]
+    logs_j, logs_t = [], []
+    mj = jinit.build_point_model(renders[:n], views[:n],
+                                 jinit.SfmInitConfig(**kw), dense_matcher=jm,
+                                 log_fn=logs_j.append)
+    mt = tinit.build_point_model(renders[:n], tviews[:n],
+                                 tinit.SfmInitConfig(**kw), dense_matcher=tm,
+                                 log_fn=logs_t.append, device="cpu")
+    assert logs_t[0] == logs_j[0]          # dense-matched pairs, keypoints
+    _same_point_model(mj, mt)
+    assert int(mt.valid.sum()) > 100
+    rj = jinit.localize_query_dense(renders[n], _K(views[n]), mj, views[:n],
+                                    jm, renders[:n], jinit.SfmInitConfig(**kw))
+    rt = tinit.localize_query_dense(renders[n], _K(views[n]), mt, tviews[:n],
+                                    tm, renders[:n],
+                                    tinit.SfmInitConfig(**kw), device="cpu")
+    _same_pose(rj, rt)
+    assert rt[2]["method"] == "pnp"
+    assert np.linalg.norm(rt[1] - np.asarray(views[n].w2c)[:3, 3]) < 0.05
