@@ -10,7 +10,9 @@ windows (the initial map at its deepest training view). It builds
 of the shared piece walks is undone (``ABLATIONS``), prints what ``ptxas``
 reports for the four kernels of each build (registers, shared memory,
 spills) and each new build's CTAs per SM, holds each against the redesign
-(k_stop equal, the largest differences printed), and times K1 and K2 at
+(k_stop equal, the largest differences printed), prints each build's K4
+distance from the float64 plain K4 at the training windows (as
+``chip_smoke.py``'s train-initial yardstick), and times K1 and K2 at
 the bench stream and K3 and K4 at the training and the bench windows
 (median of 25 launches, CUDA events, the kernels alone without the
 wrappers' allocation), in two rounds, the second in reverse order. The
@@ -55,8 +57,18 @@ ABLATIONS = {
         ("blend_common.cuh", "alpha * __expf(log_full)",
          "alpha * expf(log_full)"),
         ("blend_common.cuh", "__expf(log_before)", "expf(log_before)"),
-        ("blend_common.cuh", "__fdividef(suffix + gl, 1.0f - alpha)",
-         "(suffix + gl) / (1.0f - alpha)")],
+        ("blend_common.cuh",
+         "__fdividef((float)(suffix + gl), 1.0f - alpha)",
+         "(float)(suffix + gl) / (1.0f - alpha)")],
+    "log T rebuilt over the whole walk (K2/K4)": [(
+        "blend_common.cuh",
+        "if (p == n_pieces - 1 || (p + 1) % nsub == 0) {",
+        "if (p == n_pieces - 1) {")],
+    "float32 suffix sum (K2/K4)": [
+        ("blend_common.cuh", "double& suffix)", "float& suffix)"),
+        ("blend_common.cuh", "double suffix = 0.0;", "float suffix = 0.0f;"),
+        ("blend_common.cuh", "suffix += (double)wbar * (double)w;",
+         "suffix += wbar * w;")],
     "6 CTAs/SM bound": [
         ("blend_common.cuh", "kPieceMinBlocks = 4", "kPieceMinBlocks = 6")],
 }
@@ -113,9 +125,11 @@ def _build_all(dirs: dict) -> dict:
 
 def _launchers(lib, new: bool):
     """K1-K4 of one library, called through its C entry points. K3/K4 take
-    the order; K1/K2 take it, K1/K3 write each pixel's last applied lane
-    and K2/K4 take the forward's log_t and those lanes instead of its resid
-    when ``new`` (this tree's entry points)."""
+    the order; with ``new`` (this tree's entry points) K1/K2 take it too,
+    K3/K4 take the first tile (0 here), K1/K3 write each pixel's last
+    applied lane and its log T at each walked chunk (``last`` is the pair
+    (lanes, records)), and K2/K4 take the forward's log_t, lanes and
+    records instead of its resid."""
     import torch
 
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -131,10 +145,12 @@ def _launchers(lib, new: bool):
             raise RuntimeError(f"{name} launch: CUDA error {rc}")
 
     def written(fwd, last):      # what a forward writes: accum, log_t, resid
-        return ptrs(*fwd) + (ptrs(last) if new else [])
+        return ptrs(*fwd) + (ptrs(*last) if new else [])
 
     def taken(fwd, last):        # what a backward takes of it
-        return ptrs(fwd[1], last) if new else ptrs(fwd[2])
+        return ptrs(fwd[1], *last) if new else ptrs(fwd[2])
+
+    tile0 = [i(0)] if new else []
 
     def k1(tstart, wcount, order, stream, grid_x, chunk, fwd, last):
         head = ptrs(tstart, wcount) + (ptrs(order) if new else [])
@@ -154,15 +170,15 @@ def _launchers(lib, new: bool):
         num_tiles, _, cap = geom.shape
         run("K3", lib.gsl_pregathered_fwd(
             *ptrs(counts, order, geom, rgbd), i(num_tiles), i(cap),
-            i(grid_x), i(chunk), *written(fwd, last), cs()))
+            i(grid_x), i(chunk), *tile0, *written(fwd, last), cs()))
 
     def k4(counts, order, geom, rgbd, grid_x, chunk, gacc, glogt, fwd, last,
            outs):
         num_tiles, _, cap = geom.shape
         run("K4", lib.gsl_pregathered_bwd(
             *ptrs(counts, order, geom, rgbd), i(num_tiles), i(cap),
-            i(grid_x), i(chunk), *ptrs(gacc, glogt), *taken(fwd, last),
-            *ptrs(*outs), cs()))
+            i(grid_x), i(chunk), *tile0, *ptrs(gacc, glogt),
+            *taken(fwd, last), *ptrs(*outs), cs()))
 
     return k1, k2, k3, k4
 
@@ -261,18 +277,22 @@ def main() -> None:
     ref = {}
     dev = stream.device
 
-    def fwd_outs(num_tiles):
-        """A forward's accum, log_t, resid and its last applied lanes."""
+    def fwd_outs(num_tiles, chunks):
+        """A forward's accum, log_t, resid and its walk: the last applied
+        lanes and the log T records (``chunks`` rows of 256)."""
         return ([torch.empty((num_tiles, 4, 256), device=dev),
                  torch.empty((num_tiles, 256, 1), device=dev),
                  torch.empty((num_tiles, 256, 2), device=dev)],
-                torch.empty((num_tiles, 256), dtype=torch.int32, device=dev))
+                (torch.empty((num_tiles, 256), dtype=torch.int32,
+                             device=dev),
+                 torch.zeros((chunks, 256), device=dev)))
 
     for rnd, order_runs in enumerate((runs, runs[::-1])):
         for tag, lib, new in order_runs:
             k1, k2, k3, k4 = _launchers(lib, new)
             order = torch.empty_like(tstart)      # K1 fills it
-            f_out, last = fwd_outs(tstart.shape[0])
+            f_out, last = fwd_outs(tstart.shape[0],
+                                   -(-stream.shape[1] // cs.CHUNK))
             d_out = torch.zeros_like(stream)
             call = (tstart, wcount, order, stream, sgx, cs.CHUNK)
             k1(*call, f_out, last)
@@ -289,7 +309,8 @@ def main() -> None:
                 line.append(_vs(cur, ref["stream"]))
             for name, counts, geom, rgbd, grid_x, gacc, glogt in sets:
                 order = torch.empty_like(counts)     # K3 fills it
-                f_out, last = fwd_outs(counts.shape[0])
+                f_out, last = fwd_outs(counts.shape[0], counts.shape[0]
+                                       * (geom.shape[2] // cs.CHUNK))
                 b_out = [torch.empty_like(geom), torch.empty_like(rgbd)]
                 call = (counts, order, geom, rgbd, grid_x, cs.CHUNK)
                 k3(*call, f_out, last)
@@ -304,6 +325,46 @@ def main() -> None:
                 if tag != "redesign" and name in ref:
                     line.append(_vs(f_out + b_out, ref[name]))
             print(f"round {rnd} {tag}: " + "; ".join(line), flush=True)
+    # K4's distance from the float64 plain K4 at the training windows, per
+    # build: chip_smoke.py's train-initial yardstick (its cotangents, seed 4,
+    # zeroed on the pixels a pair flips between K3, plain f32 and f64)
+    _, counts, geom, rgbd, grid_x = sets[0][:5]
+    f64 = torch.float64
+    pargs = (counts, geom, rgbd, grid_x, 16, cs.CHUNK)
+    out = pb.pregathered_blend_fwd_cuda(*pargs)
+    out_p = pb.pregathered_blend_fwd_plain(*pargs)
+    out_64 = pb.pregathered_blend_fwd_plain(*pargs, dtype=f64)
+    flip = (cs.flipped(out[1], out_p[1]) | cs.flipped(out[1], out_64[1])
+            | cs.flipped(out_p[1], out_64[1]))
+    gacc, glogt = cs.cotangents(out[0], out[1], 4)
+    keep = (~flip).float()
+    gacc, glogt = gacc * keep[:, None, :], glogt * keep[:, :, None]
+    d_64 = pb.pregathered_blend_bwd_plain(counts, geom, rgbd, gacc, glogt,
+                                          grid_x, 16, cs.CHUNK, dtype=f64)
+
+    def dist(ds):
+        return max(cs.close_err(d, r, *cs.TOL_BWD)[1]
+                   for d, r in zip(ds, d_64))
+
+    d_32 = pb.pregathered_blend_bwd_plain(counts, geom, rgbd, gacc, glogt,
+                                          grid_x, 16, cs.CHUNK)
+    line = [f"plain f32 {dist(d_32):.4e}"]
+    for tag, lib, new in runs:
+        if not new:
+            continue
+        _, _, k3, k4 = _launchers(lib, new)
+        order = torch.empty_like(counts)
+        f_out, last = fwd_outs(counts.shape[0], counts.shape[0]
+                               * (geom.shape[2] // cs.CHUNK))
+        b_out = [torch.empty_like(geom), torch.empty_like(rgbd)]
+        call = (counts, order, geom, rgbd, grid_x, cs.CHUNK)
+        k3(*call, f_out, last)
+        k4(*call, gacc, glogt, f_out, last, b_out)
+        torch.cuda.synchronize()
+        line.append(f"{tag} {dist(b_out):.4e}")
+    print("K4 from the float64 plain K4 at the training windows (max "
+          f"normalized, tol atol {cs.TOL_BWD[0]} rtol {cs.TOL_BWD[1]}): "
+          + "; ".join(line), flush=True)
     print(cs.smi_line("name,power.limit,clocks.sm,clocks.max.sm"))
 
 

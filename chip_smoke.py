@@ -135,11 +135,35 @@
    localize`` from both front ends' initial poses, with the exact K1/K2
    launches of the three runs (K1 = steps + held-out renders + localize
    iterations, K2 = steps + localize iterations, no K3/K4) and finite
-   metrics.json files; the phase's own time.
+   metrics.json files; the phase's own time;
+17. the repaired faults: 20 stream ``train_step``s from the initial map run
+   twice from one state give bit-equal parameters (the slot-order pack
+   gradient, no atomics), and the pack gradient's reduction beside
+   ``index_add_`` on one stream step's grad stream (device ms of each,
+   their difference); the scene phase times a stream step with either;
+   the float64 yardstick lines at the training windows read K4 after its
+   log T records;
+18. multi-device (one card), the bench scene at the training phase's
+   ``max_per_tile``: a world-size-1 NCCL group runs ``dp_train_grads`` (2
+   cameras, stream), ``shard_queries_refine`` (4 queries, 50 iterations,
+   pose mode), ``rasterize_tile_sharded`` (images and gradients),
+   ``rasterize_gauss_sharded`` and ``gauss_sharded_loss_and_grads``, each
+   equal to the unsharded port; ms per refinement iteration per rank and
+   per DP step; ``blend_tiles`` on the card at the tile-sharded path's two
+   ranks' slices (tile0 = 0 and 600) against K3/K4's plain versions at
+   the same tile0, images and the gradients in every blend input; and,
+   started once the NCCL timings are taken and run alongside the rest,
+   two processes sharing cuda:0 over gloo run ``python -m
+   gs_localization_torch.parallel.dryrun`` and (``chip_smoke.py
+   --md-rank``) the tile-sharded (30 tile rows over 2 ranks) and
+   Gaussian-sharded (100,000 / 2) renders, equal to the unsharded render
+   bit for bit; the phase's launches join the kernels line.
 
 Prints one JSON line of kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
-line. Exits non-zero at once when there is no CUDA device.
+line. Exits non-zero at once when there is no CUDA device. ``--md-rank``
+(with ``--md-port``, ``--md-out`` and ``--md-max-per-tile``) runs one of
+step 18's gloo ranks; run with no arguments, the script needs one card.
 """
 
 from __future__ import annotations
@@ -200,7 +224,8 @@ SFU_ISSUE = FP32_ISSUE / 8       # special-function instructions/s
 # slot (2 sub, 6 mul, add, mul, sub, min; exp; mul); where the pair passes
 # the gate, the forward's blend (min, sub, add, mul, 4 fma, add; log, exp)
 # and the backward's adjoint (min, 2 sub, mul, 4 fma, add, 3 for abar, 2
-# mul, 14 for the five geometry terms, 4 colour mul, the suffix fma, and
+# mul, 14 for the five geometry terms, 4 colour mul, the suffix fma (a
+# float64 one, counted as one), and
 # the 10 adds that fold the pair's gradients over the pixels; log, exp,
 # reciprocal). K1/K2 and K3/K4 share these walks.
 INS_GATE = (13, 1)
@@ -411,8 +436,9 @@ def check_forward(label, kname, out_k, out_p, rgbd_max: float) -> float:
     T by at most 1e-4 * alpha and its accum by at most 1e-4 * alpha *
     |rgbd|. Such "flipped" pixels (one of the two log T within EPS_BAND of
     LOG_T_EPS) are counted and held to those bounds; every other pixel is
-    held to TOL_LOGT and TOL_FWD. Returns the max abs error, flipped pixels
-    included."""
+    held to TOL_LOGT and TOL_FWD. A kernel output without ``resid`` (None:
+    ``blend_tiles`` returns images only) skips the k_stop comparison.
+    Returns the max abs error, flipped pixels included."""
     import torch
 
     acc_k, logt_k, resid_k = out_k[:3]
@@ -429,14 +455,17 @@ def check_forward(label, kname, out_k, out_p, rgbd_max: float) -> float:
     n_acc = float(torch.where(flip[:, None, :], 0.0, d_acc / lim_acc).max())
     e_acc_flip = float(torch.where(flip[:, None, :], d_acc, 0.0).max())
     e_acc = float(d_acc.max())
-    kstop_k, kstop_p = resid_k[:, 0, 1], resid_p[:, 0, 1]
-    k_diff = int((kstop_k != kstop_p).sum())
+    if resid_k is None:
+        k_diff, k_note = 0, "k_stop not compared (images only)"
+    else:
+        k_diff = int((resid_k[:, 0, 1] != resid_p[:, 0, 1]).sum())
+        k_note = f"k_stop differs on {k_diff} tiles"
     print(f"[{label}] {kname} vs plain: accum max|d| {e_acc:.3e} (tol atol "
           f"{TOL_FWD[0]} rtol {TOL_FWD[1]}, max normalized {n_acc:.3f}); "
           f"log_t max|d| {e_lt:.3e} (tol atol {TOL_LOGT}) on all but "
           f"{n_flip} flipped pixels, whose T max|d| {e_t_flip:.3e} (tol "
           f"1e-4) and accum max|d| {e_acc_flip:.3e} (tol "
-          f"{1e-4 * rgbd_max:.3e}); k_stop differs on {k_diff} tiles")
+          f"{1e-4 * rgbd_max:.3e}); {k_note}")
     check(n_acc <= 1 and e_lt <= TOL_LOGT and e_t_flip <= 1e-4
           and e_acc_flip <= 1e-4 * rgbd_max and k_diff == 0,
           f"[{label}] {kname} disagrees with its plain version")
@@ -550,7 +579,17 @@ def hold_stream_vs_pregathered(stream_t, pack, grid_x: int, seed: int):
         counts, geom, rgbd, gacc, glogt, out_g[1], out_g[3], grid_x, 16,
         CHUNK)
     torch.cuda.synchronize()
-    pairs = list(zip([*out_s[:3], *out_s[3]], [*out_g[:3], *out_g[3]]))
+    # K1's log T records sit at each chunk's stream position, K3's at
+    # (tile, chunk): held at the chunks each tile walked
+    k_stop = out_s[2][:, 0, 1].long()
+    chunks = torch.arange(cap // CHUNK, device=stream_t.device)
+    rows = torch.clamp_max(start[:, None] // CHUNK + chunks,
+                           out_s[3].chunk_logt.shape[0] - 1)     # (T, cap/C)
+    at_k = (chunks[None, :] < k_stop[:, None])[..., None]
+    rec_s = torch.where(at_k, out_s[3].chunk_logt[rows], 0.0)
+    rec_g = torch.where(at_k, out_g[3].chunk_logt, 0.0)
+    pairs = list(zip([*out_s[:3], *out_s[3][:2], rec_s],
+                     [*out_g[:3], *out_g[3][:2], rec_g]))
     same_fwd = all(torch.equal(a, b) for a, b in pairs)
     e_fwd = max(float((a - b).abs().max()) for a, b in pairs)
     walked = torch.minimum(count, out_s[2][:, 0, 1].long() * CHUNK)
@@ -583,11 +622,13 @@ def pregathered_inputs(g, cam, cfg):
     return bins, geom, rgbd
 
 
-def yardstick64(label, args, grid_x, chunk, out_k, out_p, gacc, glogt):
+def yardstick64(label, args, grid_x, chunk, out_k, out_p, gacc, glogt,
+                at_most_f32=False):
     """K4 and the float32 plain K4 held against the float64 plain K4, with
     the cotangents zeroed on pixels that a pair flips between any two of K3,
     the float32 and the float64 plain forward: which of the two float32
-    walks (log T rebuilt by subtraction, or cumsum) is nearer."""
+    walks (the kernel's, or autograd's cumsum) is nearer. With
+    ``at_most_f32``, K4 must be no farther than the float32 plain K4."""
     import torch
     from gs_localization_torch.raster import pallas_blend as pb
 
@@ -618,10 +659,13 @@ def yardstick64(label, args, grid_x, chunk, out_k, out_p, gacc, glogt):
           f"{n_32:.4e}; K4 vs plain f32 {e_k32:.3e}, {n_k32:.4e} (tol atol "
           f"{TOL_BWD[0]} rtol {TOL_BWD[1]})")
     check(n_k32 <= 1, f"[{label}] K4 disagrees with its plain version")
+    check(not at_most_f32 or n_k <= n_32,
+          f"[{label}] K4 is farther from the float64 plain K4 than the "
+          "float32 plain K4")
 
 
 def compare_pregathered(label, counts, geom, rgbd, grid_x, seed,
-                        yardstick=False):
+                        yardstick=False, at_most_f32=False):
     """K3 and K4 against their plain versions on one set of windows, and
     K4's lanes past each count exactly 0 (and, with ``yardstick``, both
     against the float64 plain version); returns the max abs errors, the
@@ -650,7 +694,8 @@ def compare_pregathered(label, counts, geom, rgbd, grid_x, seed,
     check(nz_past == 0 and int((dk[0][:, 6:] != 0).sum()) == 0,
           f"[{label}] K4 wrote lanes past the count or the valid/pad rows")
     if yardstick:
-        yardstick64(label, args, grid_x, chunk, out_k, out_p, gacc, glogt)
+        yardstick64(label, args, grid_x, chunk, out_k, out_p, gacc, glogt,
+                    at_most_f32)
     return e_fwd, e_bwd, (gacc, glogt, out_k)
 
 
@@ -711,9 +756,10 @@ def walked_work(stream_t, pack, resid, grid_x: int):
     slots = int(walked.sum())
     stream_read = slots * 12 * 4
     tile_io = num_tiles * 256 * 7 * 4          # accum + log_t + resid
+    records = int(k_stop.sum()) * 256 * 4      # log T at each walked chunk
     return work_of(int(k_stop.sum()), slots, gated,
-                   stream_read + num_tiles * 8 + tile_io,
-                   stream_read + num_tiles * 8 + tile_io
+                   stream_read + num_tiles * 8 + tile_io + records,
+                   stream_read + num_tiles * 8 + tile_io + records
                    + 16 * stream_t.shape[1] * 4)
 
 
@@ -733,9 +779,10 @@ def pregathered_work(counts, geom, rgbd, resid, grid_x: int):
         walked, grid_x, chunk)
     slots = int(walked.sum())
     tile_io = num_tiles * 256 * 7 * 4          # accum + log_t + resid
+    records = int(k_stop.sum()) * 256 * 4      # log T at each walked chunk
     read = slots * 12 * 4 + num_tiles * 4
-    return work_of(int(k_stop.sum()), slots, gated, read + tile_io,
-                   read + tile_io + num_tiles * 12 * cap * 4)
+    return work_of(int(k_stop.sum()), slots, gated, read + tile_io + records,
+                   read + tile_io + records + num_tiles * 12 * cap * 4)
 
 
 def time_ms(fn, n: int = N_TIMED) -> float:
@@ -2262,6 +2309,359 @@ def touched_margins(label, devices, cfg, max_rows: int = 12) -> None:
               f"{apart} ULPs apart")
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launches_delta(before: dict) -> dict:
+    """The launch counters' increase since ``before``."""
+    import gs_localization_torch as gsl
+
+    return {k: gsl.LAUNCHES[k] - before[k] for k in before}
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in set(total) | set(more)}
+
+
+def md_worker(rank: int, port: int, out: str, max_per_tile: int) -> None:
+    """One of two ranks that share cuda:0 over gloo (``--md-rank``): the
+    bench scene rendered tile-sharded (the 30 tile rows over 2 ranks) and
+    Gaussian-sharded (100,000 / 2), written to ``out`` with the rank's
+    K3/K4 launches."""
+    import torch
+    import gs_localization_torch as gsl
+    from gs_localization_torch.core.camera import Camera
+    from gs_localization_torch.parallel import dp, gauss_shard, runtime
+    from gs_localization_torch.parallel.tile_shard import (
+        rasterize_tile_sharded)
+    from gs_localization_torch.raster import RasterizerConfig
+
+    runtime.initialize_runtime(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    dev = torch.device("cuda", 0)
+    g = bench_scene(dev)
+    cam = Camera.from_rt(np.eye(3), np.zeros(3), 520.0, 520.0, W, H,
+                         device=dev)
+    cfg = RasterizerConfig(max_pairs=MAX_PAIRS, max_per_tile=max_per_tile,
+                           fast_k=1, pallas_chunk=CHUNK, use_stream=False)
+    gsl.reset_launches()
+    with torch.no_grad():
+        t = rasterize_tile_sharded(dp.make_mesh(2, axis="tile"), g, cam, cfg)
+        gmesh = dp.make_mesh(2, axis="gauss")
+        color, depth, alpha, radii = gauss_shard.rasterize_gauss_sharded(
+            gmesh, gauss_shard.shard_rows(g, gmesh), cam, cfg)
+    torch.cuda.synchronize()
+    np.savez(Path(out) / f"md_r{rank}.npz", tile_color=t.color.cpu().numpy(),
+             tile_depth=t.depth.cpu().numpy(),
+             tile_overflow=bool(t.tile_overflow),
+             gauss_color=color.cpu().numpy(), gauss_depth=depth.cpu().numpy(),
+             gauss_alpha=alpha.cpu().numpy(), radii=radii.cpu().numpy(),
+             launches=json.dumps(gsl.LAUNCHES))
+    torch.distributed.destroy_process_group()
+
+
+def hold_blend_tiles(g, cam, md_cfg) -> float:
+    """``blend_tiles`` on the card at the tile-sharded path's two ranks'
+    slices of the bench render (tile0 = 0 and num_tiles / 2: the gathered
+    windows, K3/K4 with the run's first tile) against K3/K4's plain
+    versions at the same tile0 on the same windows: the images with
+    check_forward, and the autograd gradients of a seeded loss in every
+    blend input with check_backward (each input's gradient divided by its
+    largest |plain| value, as TOL_LAYOUT_GRAD). Returns the forward's max
+    abs error."""
+    import torch
+    from gs_localization_torch.raster import binning
+    from gs_localization_torch.raster import blend as tblend
+    from gs_localization_torch.raster import pallas_blend as pb
+    from gs_localization_torch.raster.preprocess import preprocess
+
+    ts = md_cfg.tile_size
+    grid_x, grid_y = -(-cam.width // ts), -(-cam.height // ts)
+    with torch.no_grad():
+        prep = preprocess(g, cam, tile_size=ts,
+                          scale_modifier=md_cfg.scale_modifier)
+        bins = binning.bin_gaussians(
+            prep, grid_x, grid_y, md_cfg.max_pairs, md_cfg.max_per_tile,
+            tile_size=ts, tile_cull=md_cfg.tile_cull)
+    check(not bool(bins.tile_overflow), "blend_tiles: tile_overflow")
+    fields = [x.detach().clone().requires_grad_() for x in (
+        prep.means2d, prep.conic, prep.rgb, prep.opacity, prep.depths)]
+    names = ("means2d", "conic", "rgb", "opacity", "depths")
+    pix = tblend.tile_pixel_coords(grid_x, grid_y, ts, cam.device)
+    per = grid_x * grid_y // 2
+    err = 0.0
+    for lo in (0, per):
+        gid, mask = bins.tile_gid[lo:lo + per], bins.tile_mask[lo:lo + per]
+        out = tblend.blend_tiles(gid, mask, *fields, grid_x, grid_y, ts,
+                                 chunk=md_cfg.chunk, pix=pix[lo:lo + per],
+                                 pallas_chunk=md_cfg.pallas_chunk)
+        geom, rgbd = pb.gather_windows(gid, *fields)
+        counts = mask.sum(dim=1, dtype=torch.int32)
+        chunk = min(md_cfg.pallas_chunk, geom.shape[2])
+        with torch.no_grad():
+            out_p = pb.pregathered_blend_fwd_plain(
+                counts, geom, rgbd, grid_x, ts, chunk, tile0=lo)
+        acc_k = torch.cat([out.color.transpose(1, 2), out.depth[:, None]], 1)
+        label = f"blend_tiles tile0 {lo}"
+        e_f, flip = check_forward(
+            label, f"blend_tiles on the card (K3, {per} tiles)",
+            (acc_k.detach(), out.log_t.detach()[..., None], None), out_p,
+            float(rgbd.detach().abs().max()))
+        err = max(err, e_f)
+
+        def bwd(gacc, glogt):
+            """[(card, plain)] gradients of <gacc, accum> + <glogt, log_t>
+            in each blend input, each divided by its largest |plain|."""
+            got = torch.autograd.grad(
+                (out.color, out.depth, out.log_t), fields,
+                (gacc[:, :3].transpose(1, 2), gacc[:, 3], glogt[..., 0]),
+                retain_graph=True)
+            dgeom, drgbd = pb.pregathered_blend_bwd_plain(
+                counts, geom.detach(), rgbd.detach(), gacc, glogt, grid_x,
+                ts, chunk, tile0=lo)
+            want = torch.autograd.grad((geom, rgbd), fields, (dgeom, drgbd),
+                                       retain_graph=True)
+            pairs = []
+            for name, k, p in zip(names, got, want):
+                scale = float(p.abs().max())
+                check(scale > 0, f"{label}: no plain gradient in {name}")
+                pairs.append((k.reshape(k.shape[0], -1) / scale,
+                              p.reshape(p.shape[0], -1) / scale))
+            return pairs
+
+        ga, gl = cotangents(out_p[0], out_p[1], seed=9 + lo)
+        check_backward(label, "blend_tiles on the card (K4) in means2d, "
+                       "conic, rgb, opacity, depths", bwd, ga, gl, flip)
+    return err
+
+
+def multi_device(g, cam, cfg, md_cfg, queries, tcfg, dev):
+    """The multi-device layer at full width on the one card: a world-size-1
+    NCCL group runs dp_train_grads, shard_queries_refine,
+    rasterize_tile_sharded, rasterize_gauss_sharded and
+    gauss_sharded_loss_and_grads, each against the unsharded port; two
+    processes sharing cuda:0 over gloo run the dryrun's checks and the
+    tile- and Gaussian-sharded renders of the bench scene against the
+    unsharded render, started once the NCCL group's timings are taken and
+    run alongside the rest of the phase; blend_tiles on the card is held
+    against its plain version at the two ranks' slices. Returns the K1-K4
+    launches of the sharded calls (their unsharded references and the
+    plain comparisons not counted) and blend_tiles' forward error."""
+    import torch
+    import torch.distributed as dist
+    import gs_localization_torch as gsl
+    from gs_localization_torch.loc import refine_poses_batch
+    from gs_localization_torch.mapping import losses as mlosses
+    from gs_localization_torch.parallel import dp, gauss_shard, runtime
+    from gs_localization_torch.parallel.tile_shard import (
+        rasterize_tile_sharded)
+    from gs_localization_torch.raster import rasterize
+
+    smi = smi_line()
+    launches = {k: 0 for k in gsl.LAUNCHES}
+    with torch.no_grad():
+        ref = rasterize(g, cam, md_cfg)
+    check(not bool(ref.overflow) and not bool(ref.tile_overflow),
+          "multi-device: the bench render overflows")
+    gt = ref.color
+
+    def sharded(fn):
+        """fn() with its launches added to the phase's count."""
+        nonlocal launches
+        torch.cuda.synchronize()
+        before = dict(gsl.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        launches = add_launches(launches, launches_delta(before))
+        return out
+
+    def mean_grads(gg, cams, imgs, c):
+        """The unsharded reference: the mean loss and gradients."""
+        ls, gs = [], []
+        for cm, im in zip(cams, imgs):
+            p = {k: getattr(gg, k).detach().requires_grad_() for k in TRAINABLE}
+            loss = mlosses.training_loss(rasterize(gg.replace(**p), cm,
+                                                   c).color, im)[0]
+            ls.append(loss.detach())
+            gs.append(torch.autograd.grad(loss, [p[k] for k in TRAINABLE]))
+        return (sum(ls) / len(ls),
+                {k: sum(x[i] for x in gs) / len(gs)
+                 for i, k in enumerate(TRAINABLE)})
+
+    def held(label, got, want):
+        """One rank's sharded call runs the unsharded code with identity
+        collectives: the same bits are expected, held to TOL_SAME."""
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        print(f"[multi-device] {label}: max|d| {err:.3e} against the "
+              f"unsharded port (tol {TOL_SAME})")
+        check(err <= TOL_SAME, f"multi-device: {label} disagrees with the "
+                               "unsharded port")
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_md_", dir=ROOT / "build"))
+    procs = []
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                f"{free_port()}", world_size=1, rank=0)
+        try:
+            mesh = dp.make_mesh()
+            cams2 = [q.camera for q in queries[:2]]
+            imgs2 = torch.stack([gt, gt])
+            loss, grads = sharded(lambda: dp.dp_train_grads(mesh, g, cams2,
+                                                            imgs2, cfg))
+            ms_dp = time_ms(lambda: dp.dp_train_grads(mesh, g, cams2, imgs2,
+                                                      cfg), 5)
+            ref_l, ref_g = mean_grads(g, cams2, imgs2, cfg)
+            held("dp_train_grads (2 cameras, stream layout): loss and "
+                 "gradients", [loss] + [grads[k] for k in TRAINABLE],
+                 [ref_l] + [ref_g[k] for k in TRAINABLE])
+
+            n_q = len(queries)
+            imgs_q = torch.stack([gt] * n_q)
+            deps_q = torch.stack([ref.depth] * n_q)
+            masks_q = torch.ones(imgs_q.shape[:3], dtype=torch.bool,
+                                 device=dev)
+            cams_q = [q.camera for q in queries]
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            res = sharded(lambda: dp.shard_queries_refine(
+                mesh, g, cams_q, imgs_q, masks_q, tcfg, cfg,
+                gt_depths=deps_q))
+            ev1.record()
+            ev1.synchronize()
+            ms_iter = ev0.elapsed_time(ev1) / (n_q * tcfg.num_iters)
+
+            # the timings are taken: start the two gloo ranks' full-width
+            # renders (chip_smoke.py --md-rank) and the dryrun, which run
+            # on the card alongside the rest of the phase
+            t0 = time.perf_counter()
+            port = free_port()
+            procs = [subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--md-rank",
+                 str(k), "--md-port", str(port), "--md-out", str(out_dir),
+                 "--md-max-per-tile", str(md_cfg.max_per_tile)], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for k in range(2)]
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "gs_localization_torch.parallel.dryrun",
+                 "--nproc", "2", "--device", "cuda"], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+            unsh = refine_poses_batch(g, cams_q, imgs_q, masks_q, tcfg, cfg,
+                                      gt_depths=deps_q)
+            check(res.num_iters == unsh.num_iters,
+                  f"multi-device: iterations {res.num_iters} != "
+                  f"{unsh.num_iters}")
+            held(f"shard_queries_refine ({n_q} queries, {tcfg.num_iters} "
+                 "iterations, pose mode): poses", [res.w2c, res.exposure_ab],
+                 [unsh.w2c, unsh.exposure_ab])
+
+            tmesh = dp.make_mesh(axis="tile")
+            out_t = sharded(lambda: rasterize_tile_sharded(tmesh, g, cam,
+                                                           md_cfg))
+            held("rasterize_tile_sharded: images", [out_t.color, out_t.depth,
+                                                    out_t.alpha],
+                 [ref.color, ref.depth, ref.alpha])
+            check(not bool(out_t.tile_overflow), "tile_overflow")
+            p = {k: getattr(g, k).detach().requires_grad_()
+                 for k in TRAINABLE}
+            tau = torch.zeros(6, device=dev, requires_grad=True)
+            with torch.no_grad():          # a target the render at cam misses
+                target = rasterize(g, queries[0].camera, md_cfg).color
+
+            def tile_grads(render):
+                o = render(g.replace(**p), cam.with_delta(tau))
+                loss = mlosses.training_loss(o.color, target)[0]
+                return torch.autograd.grad(loss, [p[k] for k in TRAINABLE]
+                                           + [tau])
+
+            g_t = sharded(lambda: tile_grads(
+                lambda gg, c: rasterize_tile_sharded(tmesh, gg, c, md_cfg)))
+            g_r = tile_grads(lambda gg, c: rasterize(gg, c, md_cfg))
+            held("rasterize_tile_sharded: gradients in the Gaussians and "
+                 "tau", g_t, g_r)
+
+            gmesh = dp.make_mesh(axis="gauss")
+            color, depth, alpha, radii = sharded(
+                lambda: gauss_shard.rasterize_gauss_sharded(
+                    gmesh, gauss_shard.shard_rows(g, gmesh), cam, md_cfg))
+            held("rasterize_gauss_sharded: images and radii",
+                 [color, depth, alpha, radii.float()],
+                 [ref.color, ref.depth, ref.alpha, ref.radii.float()])
+            mesh2 = gauss_shard.make_mesh_2d(1, 1)
+            loss2, grads2 = sharded(
+                lambda: gauss_shard.gauss_sharded_loss_and_grads(
+                    mesh2, gauss_shard.shard_rows(g, mesh2), cams2, imgs2,
+                    md_cfg))
+            ref_l2, ref_g2 = mean_grads(g, cams2, imgs2, md_cfg)
+            held("gauss_sharded_loss_and_grads (a 1 x 1 data x gauss mesh, 2 "
+                 "cameras): loss and gradients",
+                 [loss2] + [grads2[k] for k in TRAINABLE],
+                 [ref_l2] + [ref_g2[k] for k in TRAINABLE])
+        finally:
+            dist.destroy_process_group()
+        print(f"[multi-device] one NCCL rank on {smi}: {ms_iter:.3f} ms per "
+              f"refinement iteration per rank (shard_queries_refine, {n_q} "
+              f"queries x {tcfg.num_iters}), {ms_dp:.3f} ms per DP step (2 "
+              "cameras, median of 5); the ranks share one card, and no NCCL "
+              "run across cards was measured (the machine has one card)")
+        print(f"[multi-device] NCCL rank launches {launches}")
+
+        # blend_tiles on the card against its plain version, at the
+        # tile-sharded path's slices
+        e_f = hold_blend_tiles(g, cam, md_cfg)
+
+        # ---- the two gloo ranks and the dryrun, started above ----------
+        logs = [pr.communicate(timeout=600)[0] for pr in procs]
+        dry, dry_log = procs[2], logs[2]
+        print(dry_log.strip())
+        check(dry.returncode == 0 and "ALL OK (2 processes, gloo, cuda)"
+              in dry_log, f"multi-device: the 2-rank dryrun on cuda:0 "
+              f"failed: {dry_log[-3000:]}")
+        check(all(pr.returncode == 0 for pr in procs[:2]),
+              "multi-device: a gloo rank failed: " + " | ".join(
+                  log[-1500:] for log in logs[:2]))
+        print(f"[multi-device] the 2-rank gloo dryrun and the 2 gloo ranks' "
+              f"renders on cuda:0, started with the NCCL checks and the "
+              f"blend_tiles check still to run: {time.perf_counter() - t0:.1f}"
+              " s from their start to the end of the last")
+        ranks = [np.load(out_dir / f"md_r{k}.npz") for k in range(2)]
+        want = {k: v.cpu().numpy() for k, v in (
+            ("color", ref.color), ("depth", ref.depth), ("alpha", ref.alpha))}
+        for k in range(2):
+            for name in ("color", "depth"):
+                check(np.array_equal(ranks[k][f"tile_{name}"], want[name]),
+                      f"multi-device: rank {k}'s tile-sharded {name}")
+            for name in ("color", "depth", "alpha"):
+                check(np.array_equal(ranks[k][f"gauss_{name}"], want[name]),
+                      f"multi-device: rank {k}'s Gaussian-sharded {name}")
+            check(not bool(ranks[k]["tile_overflow"]), "tile_overflow")
+        radii = np.concatenate([ranks[k]["radii"] for k in range(2)])
+        check(np.array_equal(radii, ref.radii.cpu().numpy()),
+              "multi-device: the Gaussian-sharded radii")
+        gloo_launches = {}
+        for k in range(2):
+            gloo_launches = add_launches(
+                gloo_launches, json.loads(str(ranks[k]["launches"])))
+        print(f"[multi-device] 2 gloo ranks on cuda:0: the tile-sharded "
+              f"render (30 tile rows, 15 a rank) and the Gaussian-sharded "
+              f"render ({N_GAUSS} / 2) equal the unsharded render bit for "
+              f"bit, tile_overflow false; K1-K4 launches of both ranks "
+              f"{gloo_launches}")
+    finally:
+        for pr in procs:          # a rank left waiting on a failed peer
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return add_launches(launches, gloo_launches), e_f
+
+
 def main() -> None:
     import torch
 
@@ -2504,7 +2904,7 @@ def main() -> None:
               f"median {int(c_t.median())}, geom {tuple(geom_t.shape)}")
         e3, e4, (gacc_t, glogt_t, fwd_t) = compare_pregathered(
             "train-initial", c_t, geom_t, rgbd_t, grid_x, seed=4,
-            yardstick=True)
+            yardstick=True, at_most_f32=True)
         err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
 
     # ---- layout cross-check at full width ------------------------------------
@@ -2842,6 +3242,65 @@ def main() -> None:
         check(is_jpeg and launches_view["stream_fwd"] == 1,
               "the viewer's frame is not a JPEG rendered through K1")
 
+    # ---- the repaired faults: reproducible stream training ----------------
+    with phase("repairs (stream training bits, the pack gradient)"):
+        mcfg_r = mtrain.MapTrainConfig(spatial_scale=scene.extent)
+        rviews = [(i.camera, torch.tensor(imgs[i.uid], device=dev),
+                   torch.tensor(deps[i.uid], device=dev))
+                  for i in scene.train_cameras]
+
+        def stream_run(n=20):
+            st = mtrain.init_training(g0, mcfg_r)
+            for k in range(n):
+                c, im, dp = rviews[k % len(rviews)]
+                st, _ = mtrain.train_step(st, c, im, mcfg_r, stream_train,
+                                          gt_depth=dp)
+            return st
+
+        run_a, run_b = stream_run(), stream_run()
+        same = {f: bool(torch.equal(getattr(run_a.gaussians, f),
+                                    getattr(run_b.gaussians, f)))
+                for f in TRAINABLE}
+        moved = float((run_a.gaussians.xyz - g0.xyz).abs().max())
+        print(f"stream training, 20 train_steps twice from one state "
+              f"(initial map, {g0.capacity} slots): parameters bit-equal "
+              f"{same}; xyz moved up to {moved:.3e}")
+        check(all(same.values()) and moved > 0,
+              "stream training is not bit-reproducible")
+        del run_a, run_b
+        # the pack gradient's reduction at a stream step's shapes: the
+        # slot-order reduction (this port) beside index_add_ (the gather's
+        # adjoint before), on the same grad stream
+        from gs_localization_torch.raster.preprocess import preprocess
+        from gs_localization_torch.raster.rasterize import (bin_stream_for,
+                                                            stream_pack)
+        c0 = rviews[0][0]
+        with torch.no_grad():
+            prep0 = preprocess(g0, c0)
+            sb0 = bin_stream_for(prep0, c0, stream_train)
+            pk0 = stream_pack(prep0, prep0.means2d)
+        dst = torch.randn((16, sb0.gid_of_pos.shape[0] + CHUNK),
+                          generator=torch.Generator().manual_seed(12)).to(dev)
+        slot = lambda: sb.slot_order_pack_grad(dst, sb0, 12)  # noqa: E731
+
+        def index_add():
+            d = torch.where(torch.arange(dst.shape[1], device=dev)
+                            < sb0.kept_al, dst, 0.0)[:12, :-CHUNK].T
+            return torch.zeros((pk0.shape[0] + 1, 12), device=dev
+                               ).index_add_(0, sb0.gid_of_pos.long(),
+                                            d)[:-1]
+
+        d_slot, d_add = slot(), index_add()
+        e_red = float((d_slot - d_add).abs().max())
+        ms_slot, ms_add = device_ms(slot), device_ms(index_add)
+        print(f"pack gradient per stream step ({pk0.shape[0]} Gaussians, "
+              f"{int(sb0.kept_al)} stream lanes, {sb0.pos_by_slot.shape[0]} "
+              f"slots): slot order {ms_slot:.4f} ms device time, index_add_ "
+              f"{ms_add:.4f} ms; max|d| between them {e_red:.3e} (scale "
+              f"{float(d_add.abs().max()):.3e}); {smi_line()}")
+        check(e_red <= 1e-4 * max(float(d_add.abs().max()), 1.0),
+              "the slot-order pack gradient disagrees with index_add_")
+
     # ---- pose mode's PairPack: 2 queries on the pregathered layout ----------
     with phase("localization (PairPack, K3/K4)"):
         cfg_pair = cfg.replace(use_stream=False,
@@ -2868,6 +3327,20 @@ def main() -> None:
             grid_x, seed=6)
         err_k3, err_k4 = max(err_k3, e3), max(err_k4, e4)
         del pk, geom_q, rgbd_q
+
+    # ---- the multi-device layer at full width on the one card -------------
+    with phase("multi-device (one card)"):
+        md_cfg = cfg.replace(use_stream=False,
+                             max_per_tile=train_cfg.max_per_tile)
+        print(f"[multi-device] the bench scene ({W}x{H}, {N_GAUSS} "
+              f"Gaussians at SH 3), max_per_tile {md_cfg.max_per_tile} (the "
+              f"training phase's)")
+        launches_md, e_f = multi_device(g, cam, cfg, md_cfg, queries, tcfg,
+                                        dev)
+        err_k3 = max(err_k3, e_f)
+        print(f"multi-device launches: {launches_md}")
+        check(all(launches_md[k] > 0 for k in launches_md),
+              f"multi-device: a kernel was not launched: {launches_md}")
 
     # ---- the scene runner on a 7-Scenes layout: stream training, K1/K2 ------
     with phase("scene runner (stream training, K1/K2)"):
@@ -3068,29 +3541,26 @@ def main() -> None:
 
             step_stream = time_ms(lambda: steps_on(rcfg_s), 5) / 10
             step_pre = time_ms(lambda: steps_on(pre_cfg_s), 5) / 10
-            # the stream gather's adjoint as advanced indexing gives it
-            # (sorted positions, each Gaussian's duplicates walked serially;
-            # this PR's first form) instead of index_select's index_add_
-            new_assemble = sb.assemble_stream
+            # the pack gradient as index_select's adjoint index_add_
+            # (atomics) gives it, instead of the slot-order reduction
+            slot_order = sb._SlotOrderStream
 
-            def indexed_assemble(pack, gid_of_pos, chunk):
-                pad = torch.cat([pack, pack.new_zeros((1, pack.shape[1]))])
-                st = pad[gid_of_pos.long()].T
-                st = torch.cat([st, st.new_zeros((16 - st.shape[0],
-                                                  st.shape[1]))])
-                return torch.cat([st, st.new_zeros((16, chunk))], dim=1)
+            class IndexAdd:
+                @staticmethod
+                def apply(pack, sbins, chunk):
+                    return sb.assemble_stream(pack, sbins.gid_of_pos, chunk)
 
-            sb.assemble_stream = indexed_assemble
+            sb._SlotOrderStream = IndexAdd
             try:
-                step_indexed = time_ms(lambda: steps_on(rcfg_s, 3), 3) / 3
+                step_add = time_ms(lambda: steps_on(rcfg_s), 5) / 10
             finally:
-                sb.assemble_stream = new_assemble
+                sb._SlotOrderStream = slot_order
             print(f"scene train_step from the initial map: stream layout "
-                  f"{step_stream:.3f} ms/step, pregathered (max_per_tile "
-                  f"{pre_cfg_s.max_per_tile}, probed max count {mtc_s}) "
-                  f"{step_pre:.3f} ms/step (median of 5 runs of 10 steps); "
-                  f"stream with the advanced-indexing gather adjoint "
-                  f"{step_indexed:.3f} ms/step (median of 3 runs of 3)")
+                  f"{step_stream:.3f} ms/step (slot-order pack gradient), "
+                  f"{step_add:.3f} ms/step with index_add_ instead; "
+                  f"pregathered (max_per_tile {pre_cfg_s.max_per_tile}, "
+                  f"probed max count {mtc_s}) {step_pre:.3f} ms/step "
+                  f"(median of 5 runs of 10 steps)")
             profile("train stream", lambda: steps_on(rcfg_s, 20), 20)
         finally:
             shutil.rmtree(scene_dir, ignore_errors=True)
@@ -3232,13 +3702,19 @@ def main() -> None:
     k12_launches = {k: launches_loc[k] + launches_fs[k] + launches_view[k]
                     + launches_scene_train[k] + launches_scene_loc[k]
                     + launches_all[k] + launches_learned[k]
-                    + launches_hloc[k]
+                    + launches_hloc[k] + launches_md[k]
                     for k in ("stream_fwd", "stream_bwd")}
+    # K3/K4 run on two paths: pregathered training and the multi-device
+    # phase's tile- and Gaussian-sharded renders
+    k34_launches = {k: launches_train[k] + launches_md[k]
+                    for k in ("pregathered_fwd", "pregathered_bwd")}
     print(f"K1/K2 launches: localization {launches_loc}, few-shot training "
           f"{launches_fs}, viewer {launches_view}, scene runner train "
           f"{launches_scene_train}, localize {launches_scene_loc}, all "
           f"stages {launches_all}, learned front end {launches_learned}, "
-          f"hloc confs {launches_hloc}")
+          f"hloc confs {launches_hloc}, multi-device {launches_md}; K3/K4 "
+          f"launches: training {launches_train}, multi-device "
+          f"{launches_md}")
     kernels = [
         entry("stream_fwd", "stream_blend.cu",
               "gs_localization_tpu/raster/stream_blend.py:85",
@@ -3250,11 +3726,11 @@ def main() -> None:
               work12["bwd_bytes"], work12["bwd_ops_s"]),
         entry("pregathered_fwd", "pallas_blend.cu",
               "gs_localization_tpu/raster/pallas_blend.py:82",
-              launches_train["pregathered_fwd"], err_k3, tk["K3"], k3p_ms,
+              k34_launches["pregathered_fwd"], err_k3, tk["K3"], k3p_ms,
               work34["fwd_bytes"], work34["fwd_ops_s"]),
         entry("pregathered_bwd", "pallas_blend.cu",
               "gs_localization_tpu/raster/pallas_blend.py:145",
-              launches_train["pregathered_bwd"], err_k4, tk["K4"], k4p_ms,
+              k34_launches["pregathered_bwd"], err_k4, tk["K4"], k4p_ms,
               work34["bwd_bytes"], work34["bwd_ops_s"]),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3266,4 +3742,14 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--md-rank" in sys.argv:
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        for flag in ("--md-rank", "--md-port", "--md-max-per-tile"):
+            ap.add_argument(flag, type=int, required=True)
+        ap.add_argument("--md-out", required=True)
+        a = ap.parse_args()
+        md_worker(a.md_rank, a.md_port, a.md_out, a.md_max_per_tile)
+    else:
+        main()

@@ -17,7 +17,9 @@
 //   chunk at whose end every pixel has log T < log(1e-4); k_stop counts the
 //   chunks it visited.
 // The forward also records, per pixel, one past the lane of the last pair
-// it applied (`last`); the backward is the adjoint of exactly those pairs.
+// it applied (`last`) and its log T at the start of every chunk it walks
+// (`chunk_logt`); the backward is the adjoint of exactly those pairs, and
+// starts each chunk's reverse walk from the forward's own log T.
 //
 // The gate arithmetic uses explicitly rounded intrinsics (no FMA
 // contraction) in the same order as the plain PyTorch version, so the
@@ -44,7 +46,9 @@ struct Gate {
   bool in;
 };
 
-// Pixel coordinates of this thread's pixel in tile t.
+// Pixel coordinates of this thread's pixel in tile t of the image (the
+// callers pass tile0 + t: a launch may cover a run of tiles that starts at
+// tile0).
 __device__ __forceinline__ void pixel_of(int t, int grid_x, float* px, float* py) {
   const int i = threadIdx.x;
   *px = (float)((t % grid_x) * kTile + i % kTile);
@@ -250,20 +254,26 @@ __device__ __forceinline__ int reduce10_slot(int lane) {
 // The pairs the forward applied are exactly the gated pairs of the lanes
 // before `last` (blend_piece_fwd): log T only falls, so the forward applies
 // a prefix of the gated pairs, and every other pair has zero gradient.
-// `log_after`, the inclusive log T after the pair, starts at the forward's
-// log_t, which is bit for bit the inclusive log T of the last applied pair,
-// and is rebuilt by subtraction through the applied pairs only. `suffix` is
-// the sum over later pairs of wbar * w. Both carry to the previous piece.
-// (The TPU kernel instead rebuilds log T from log_full through every pair
-// the forward walked and compares it with log(1e-4), which after a long
-// walk past saturation can drift from the forward's value.)
+// `log_after`, the inclusive log T after the pair, is rebuilt by
+// subtraction through the applied pairs only, from a value the forward
+// computed bit for bit: at the end of each contract chunk blend_tile_bwd
+// resets it (the forward's log T at the next chunk's start, or its log_t in
+// the chunk of the last applied pair), so the subtractions never run past
+// one chunk. `suffix` is the sum over later pairs of wbar * w, kept in
+// double: it runs over every applied pair of the pixel (over a thousand at
+// the training windows), where autograd's plain version sums it by chunks,
+// and a float32 running sum lost digits against that (the float64
+// yardstick of chip_smoke.py). Both carry to the previous piece. (The TPU
+// kernel instead rebuilds log T from log_full through every pair the
+// forward walked and compares it with log(1e-4), which after a long walk
+// past saturation can drift from the forward's value.)
 __device__ __forceinline__ void blend_piece_bwd(const float* stage, float* part,
                                                 int base, int lanes, float px,
                                                 float py, const float gc[4],
                                                 float gl, int last,
                                                 int warp_last, int slot,
                                                 float& log_after,
-                                                float& suffix) {
+                                                double& suffix) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const float4* p = reinterpret_cast<const float4*>(stage);
@@ -293,7 +303,8 @@ __device__ __forceinline__ void blend_piece_bwd(const float* stage, float* part,
       wbar += gc[1] * c.y;
       wbar += gc[2] * c.z;
       wbar += gc[3] * c.w;
-      const float abar = wbar * t_prev - __fdividef(suffix + gl, 1.0f - alpha);
+      const float abar =
+          wbar * t_prev - __fdividef((float)(suffix + gl), 1.0f - alpha);
       const bool unclamped = g.araw < kAlphaMax;
       const float dpow = unclamped ? abar * g.araw : 0.0f;
       const float dopa = unclamped ? abar * g.expp : 0.0f;
@@ -305,7 +316,7 @@ __device__ __forceinline__ void blend_piece_bwd(const float* stage, float* part,
       v[5] = dopa;
 #pragma unroll
       for (int ch = 0; ch < 4; ++ch) v[6 + ch] = gc[ch] * w;
-      suffix += wbar * w;
+      suffix += (double)wbar * (double)w;
       log_after = log_before;
     }
     float s = 0.0f;
@@ -335,18 +346,23 @@ __device__ __forceinline__ float sum_piece_partials(const float* part, int j,
 // contract chunk, never of a piece. Writes tile t's accum (4, kPix), log_t
 // (kPix) and resid (kPix, 2) = [log_full, k_stop], and for the backward
 // `last` (kPix): one past the lane of each pixel's last applied pair, 0
-// where it applied none. The first piece of the next chunk is copied before
-// the vote; when the vote ends the walk, that copy is drained and dropped.
+// where it applied none, and `chunk_logt` (the tile's records: chunk k at
+// chunk_logt[k * kPix]): each pixel's log T at the start of every chunk it
+// walks. The pixels are those of image tile tile0 + t. The first piece of
+// the next chunk is copied before the vote; when the vote ends the walk,
+// that copy is drained and dropped.
 __device__ __forceinline__ void blend_tile_fwd(float (*stage)[kStageFloats],
                                                PairWindow win, int count,
-                                               int chunk, int t, int grid_x,
+                                               int chunk, int t, int tile0,
+                                               int grid_x,
                                                float* __restrict__ accum,
                                                float* __restrict__ logt,
                                                float* __restrict__ resid,
-                                               int* __restrict__ last_out) {
+                                               int* __restrict__ last_out,
+                                               float* __restrict__ chunk_logt) {
   const int i = threadIdx.x;
   float px, py;
-  pixel_of(t, grid_x, &px, &py);
+  pixel_of(tile0 + t, grid_x, &px, &py);
   const int sw = min(kSub, chunk);
   const int nsub = (chunk + sw - 1) / sw;
   const int n_pieces = pieces_of(count, chunk, sw, nsub);
@@ -364,6 +380,7 @@ __device__ __forceinline__ void blend_tile_fwd(float (*stage)[kStageFloats],
       stage_piece(stage[(p + 1) & 1], win, piece_of(p + 1, chunk, sw, nsub, count));
     }
     const Piece q = piece_of(p, chunk, sw, nsub, count);
+    if (p % nsub == 0) chunk_logt[(size_t)(p / nsub) * kPix + i] = log_full;
     blend_piece_fwd(stage[p & 1], q.start, q.n, px, py, log_full, log_app,
                     last, acc);
     if ((p + 1) % nsub == 0 || p + 1 == n_pieces) {   // end of a contract chunk
@@ -384,24 +401,29 @@ __device__ __forceinline__ void blend_tile_fwd(float (*stage)[kStageFloats],
 // Backward: lanes [0, end) from the last lane down, piece by piece, where
 // end is the largest `last` of the tile's pixels (at most min(count, k_stop
 // * chunk), the lanes the forward walked): no pixel applied a later pair,
-// so every later lane's gradients are 0. log T is rebuilt from the
-// forward's log_t through the applied pairs (blend_piece_bwd). Writes each
-// walked lane's ten sums (rows 0-5 and 8-11 of `out`) once; `fill(end)`
-// runs after the first copy is issued, for a layout that must also write
-// what no walked lane covers.
+// so every later lane's gradients are 0. Each chunk's reverse walk starts
+// from the forward's own log T after the chunk's last applied pair: its
+// record at the next chunk's start (`chunk_logt`, as blend_tile_fwd wrote
+// it) where the pixel applied pairs past this chunk, else its log_t; log T
+// is rebuilt from there through the chunk's applied pairs
+// (blend_piece_bwd). Writes each walked lane's ten sums (rows 0-5 and 8-11
+// of `out`) once; `fill(end)` runs after the first copy is issued, for a
+// layout that must also write what no walked lane covers.
 template <typename Fill>
 __device__ __forceinline__ void blend_tile_bwd(float (*stage)[kStageFloats],
                                                float* part, PairWindow win,
                                                GradWindow out, int count,
-                                               int chunk, int t, int grid_x,
+                                               int chunk, int t, int tile0,
+                                               int grid_x,
                                                const float* __restrict__ gacc,
                                                const float* __restrict__ glogt,
                                                const float* __restrict__ logt,
                                                const int* __restrict__ last_in,
+                                               const float* __restrict__ chunk_logt,
                                                Fill fill) {
   const int i = threadIdx.x;
   float px, py;
-  pixel_of(t, grid_x, &px, &py);
+  pixel_of(tile0 + t, grid_x, &px, &py);
   const size_t tp = (size_t)t * kPix + i;
   const int last = min(max(last_in[tp], 0), count);
   const int warp_last = __reduce_max_sync(0xffffffffu, last);
@@ -419,16 +441,24 @@ __device__ __forceinline__ void blend_tile_bwd(float (*stage)[kStageFloats],
   }
   fill(end);
 
-  float log_after = logt[tp];   // the inclusive log T of the last applied pair
+  float log_after = logt[tp];   // reset at the end of each chunk below
   float gc[4];
 #pragma unroll
   for (int ch = 0; ch < 4; ++ch) gc[ch] = gacc[((size_t)t * 4 + ch) * kPix + i];
   const float gl = glogt[tp];
-  float suffix = 0.0f;          // sum over later pairs of wbar * w
+  double suffix = 0.0;          // sum over later pairs of wbar * w
   const int slot = reduce10_slot(i & 31);
 
   for (int p = n_pieces - 1; p >= 0; --p) {
     const Piece q = piece_of(p, chunk, sw, nsub, end);
+    if (p == n_pieces - 1 || (p + 1) % nsub == 0) {   // the end of chunk k
+      const int k = p / nsub;
+      // the inclusive log T of the chunk's last applied pair, as the
+      // forward computed it (either value where the chunk applied none)
+      log_after = last > (k + 1) * chunk
+                      ? chunk_logt[(size_t)(k + 1) * kPix + i]
+                      : logt[tp];
+    }
     cp_async_wait_all();
     __syncthreads();   // piece p landed; buffer (p - 1) & 1 and part free
     if (p > 0) {

@@ -60,9 +60,14 @@
 //   accurate (threshold tests read them); the weight exp(log T) of an
 //   applied pair and K4's division by 1 - alpha use __expf / __fdividef
 //   (blend_common.cuh says why that is safe).
-// - K3 records each pixel's last applied lane (`last`). K4 takes the
-//   gated pairs before it as the applied ones and rebuilds their log T from
-//   K3's log_t, so it is the adjoint of exactly the blend K3 computed, and
+// - K3 records each pixel's last applied lane (`last`) and its log T at
+//   the start of every chunk it walks (`chunk_logt`, (T, cap / chunk, 256)
+//   floats). K4 takes the gated pairs before `last` as the applied ones and
+//   rebuilds their log T by subtraction within each chunk only, from K3's
+//   record at the next chunk's start (or K3's log_t in the chunk of the last
+//   applied pair): it is the adjoint of exactly the blend K3 computed, at
+//   the log T K3 computed at every chunk's end (and it keeps each pixel's
+//   running sum over later pairs in double, blend_piece_bwd says why), and
 //   each warp stops its walk at its pixels' largest `last` (blend_piece_bwd
 //   says how). This departs from the TPU kernel on purpose: that one
 //   rebuilds log T from log_full through every walked pair and compares it
@@ -99,7 +104,8 @@ struct TileCount {
   }
 };
 
-// Tile t's window: its own (8, cap) and (4, cap) blocks.
+// Tile t's window: its own (8, cap) and (4, cap) blocks; its log T records
+// are chunk_logt[(t * chunks + k) * kPix], chunks = cap / chunk.
 __device__ __forceinline__ PairWindow tile_pairs(const float* geom,
                                                  const float* rgbd, int t,
                                                  int cap) {
@@ -112,14 +118,16 @@ pregathered_fwd_kernel(const int* __restrict__ counts,
                        const int* __restrict__ order, int num_tiles,
                        const float* __restrict__ geom,
                        const float* __restrict__ rgbd, int cap, int grid_x,
-                       int chunk, float* __restrict__ accum,
+                       int chunk, int tile0, float* __restrict__ accum,
                        float* __restrict__ logt, float* __restrict__ resid,
-                       int* __restrict__ last) {
+                       int* __restrict__ last,
+                       float* __restrict__ chunk_logt) {
   __shared__ __align__(16) float stage[kStages][kStageFloats];
   const int t = tile_of(order, num_tiles);
+  const size_t chunks = (size_t)((cap + chunk - 1) / chunk);
   blend_tile_fwd(stage, tile_pairs(geom, rgbd, t, cap),
-                 TileCount{counts, cap}(t), chunk, t, grid_x, accum, logt,
-                 resid, last);
+                 TileCount{counts, cap}(t), chunk, t, tile0, grid_x, accum,
+                 logt, resid, last, chunk_logt + (size_t)t * chunks * kPix);
 }
 
 __global__ void __launch_bounds__(kPix, kPieceMinBlocks)
@@ -127,10 +135,11 @@ pregathered_bwd_kernel(const int* __restrict__ counts,
                        const int* __restrict__ order, int num_tiles,
                        const float* __restrict__ geom,
                        const float* __restrict__ rgbd, int cap, int grid_x,
-                       int chunk, const float* __restrict__ gacc,
+                       int chunk, int tile0, const float* __restrict__ gacc,
                        const float* __restrict__ glogt,
                        const float* __restrict__ logt,
                        const int* __restrict__ last,
+                       const float* __restrict__ chunk_logt,
                        float* __restrict__ dgeom, float* __restrict__ drgbd) {
   __shared__ __align__(16) float stage[kStages][kStageFloats];
   __shared__ float part[kWarps * kSub * kGrad];
@@ -149,45 +158,52 @@ pregathered_bwd_kernel(const int* __restrict__ counts,
       for (int j = end + i; j < cap; j += kPix) row[j] = 0.0f;
     }
   };
+  const size_t chunks = (size_t)((cap + chunk - 1) / chunk);
   blend_tile_bwd(stage, part, tile_pairs(geom, rgbd, t, cap),
                  GradWindow{dg, dc, (size_t)cap}, TileCount{counts, cap}(t),
-                 chunk, t, grid_x, gacc, glogt, logt, last, fill);
+                 chunk, t, tile0, grid_x, gacc, glogt, logt, last,
+                 chunk_logt + (size_t)t * chunks * kPix, fill);
 }
 
 }  // namespace
 
 extern "C" {
 
-// `order` (num_tiles ints) receives the tile order the kernel ran in and
-// `last` (num_tiles x 256 ints) each pixel's last applied lane + 1: both
-// are inputs of the backward.
+// `order` (num_tiles ints) receives the tile order the kernel ran in,
+// `last` (num_tiles x 256 ints) each pixel's last applied lane + 1 and
+// `chunk_logt` (num_tiles x cap / chunk x 256 floats) each pixel's log T at
+// the start of every chunk it walked (entries of chunks it did not walk are
+// left as they were): all three are inputs of the backward. Window t holds
+// the pairs of image tile tile0 + t.
 int gsl_pregathered_fwd(const int* counts, int* order, const float* geom,
                         const float* rgbd, int num_tiles, int cap, int grid_x,
-                        int chunk, float* accum, float* logt, float* resid,
-                        int* last, void* cuda_stream) {
+                        int chunk, int tile0, float* accum, float* logt,
+                        float* resid, int* last, float* chunk_logt,
+                        void* cuda_stream) {
   if (num_tiles == 0) return 0;
   if (chunk < 1 || cap < chunk) return (int)cudaErrorInvalidValue;
   const int err = launch_tile_order(TileCount{counts, cap}, num_tiles, order,
                                     (cudaStream_t)cuda_stream);
   if (err != 0) return err;
   pregathered_fwd_kernel<<<num_tiles, kPix, 0, (cudaStream_t)cuda_stream>>>(
-      counts, order, num_tiles, geom, rgbd, cap, grid_x, chunk, accum, logt,
-      resid, last);
+      counts, order, num_tiles, geom, rgbd, cap, grid_x, chunk, tile0, accum,
+      logt, resid, last, chunk_logt);
   return (int)cudaGetLastError();
 }
 
-// `order`, `logt` and `last` are the forward's.
+// `order`, `logt`, `last` and `chunk_logt` are the forward's.
 int gsl_pregathered_bwd(const int* counts, const int* order,
                         const float* geom, const float* rgbd, int num_tiles,
-                        int cap, int grid_x, int chunk, const float* gacc,
-                        const float* glogt, const float* logt,
-                        const int* last, float* dgeom, float* drgbd,
+                        int cap, int grid_x, int chunk, int tile0,
+                        const float* gacc, const float* glogt,
+                        const float* logt, const int* last,
+                        const float* chunk_logt, float* dgeom, float* drgbd,
                         void* cuda_stream) {
   if (num_tiles == 0) return 0;
   if (chunk < 1 || cap < chunk) return (int)cudaErrorInvalidValue;
   pregathered_bwd_kernel<<<num_tiles, kPix, 0, (cudaStream_t)cuda_stream>>>(
-      counts, order, num_tiles, geom, rgbd, cap, grid_x, chunk, gacc, glogt,
-      logt, last, dgeom, drgbd);
+      counts, order, num_tiles, geom, rgbd, cap, grid_x, chunk, tile0, gacc,
+      glogt, logt, last, chunk_logt, dgeom, drgbd);
   return (int)cudaGetLastError();
 }
 

@@ -25,9 +25,15 @@
 //   contract chunk, so k_stop and resid follow the contract;
 // - K2 folds a pair's ten gradients with reduce10, 12 shuffles, not ten
 //   5-shuffle trees;
-// - K1 records each pixel's last applied lane and K2 walks only up to it,
-//   rebuilding log T from K1's log_t through the applied pairs, so K2 is
-//   the adjoint of exactly the blend K1 computed and skips the pairs walked
+// - K1 records each pixel's last applied lane and its log T at the start
+//   of every chunk it walks (`chunk_logt`, one row of 256 floats per chunk
+//   of the stream, (MR_AL + chunk) / chunk rows, indexed by the chunk's
+//   position in the stream), and K2 walks only up to that lane, rebuilding
+//   log T by subtraction within each chunk only, from K1's record at the
+//   next chunk's start (or K1's log_t in the chunk of the last applied
+//   pair; its running sum over later pairs in double), so K2 is the
+//   adjoint of exactly the blend K1 computed, at the log T K1 computed at
+//   every chunk's end, and skips the pairs walked
 //   after saturation (a deliberate departure from the TPU kernel, which
 //   rebuilds log T from log_full through every walked pair and compares it
 //   with log(1e-4));
@@ -84,15 +90,15 @@ stream_fwd_kernel(const int* __restrict__ tstart, const int* __restrict__ wcount
                   const float* __restrict__ stream, int mrpad, int grid_x,
                   int chunk, float* __restrict__ accum,
                   float* __restrict__ logt, float* __restrict__ resid,
-                  int* __restrict__ last) {
+                  int* __restrict__ last, float* __restrict__ chunk_logt) {
   __shared__ __align__(16) float stage[kStages][kStageFloats];
   const int t = tile_of(order, num_tiles);
   const Window w = tile_window(tstart, wcount, t, mrpad, chunk);
   const PairWindow win{stream + w.start,
                        stream + (size_t)kGeomRows * mrpad + w.start,
                        (size_t)mrpad};
-  blend_tile_fwd(stage, win, w.count, chunk, t, grid_x, accum, logt, resid,
-                 last);
+  blend_tile_fwd(stage, win, w.count, chunk, t, 0, grid_x, accum, logt,
+                 resid, last, chunk_logt + (size_t)(w.start / chunk) * kPix);
 }
 
 __global__ void __launch_bounds__(kPix, kPieceMinBlocks)
@@ -103,6 +109,7 @@ stream_bwd_kernel(const int* __restrict__ tstart, const int* __restrict__ wcount
                   const float* __restrict__ glogt,
                   const float* __restrict__ logt,
                   const int* __restrict__ last,
+                  const float* __restrict__ chunk_logt,
                   float* __restrict__ dstream) {
   __shared__ __align__(16) float stage[kStages][kStageFloats];
   __shared__ float part[kWarps * kSub * kGrad];
@@ -112,7 +119,8 @@ stream_bwd_kernel(const int* __restrict__ tstart, const int* __restrict__ wcount
   blend_tile_bwd(stage, part,
                  PairWindow{stream + w.start, stream + rgbd, (size_t)mrpad},
                  GradWindow{dstream + w.start, dstream + rgbd, (size_t)mrpad},
-                 w.count, chunk, t, grid_x, gacc, glogt, logt, last,
+                 w.count, chunk, t, 0, grid_x, gacc, glogt, logt, last,
+                 chunk_logt + (size_t)(w.start / chunk) * kPix,
                  [](int) {});   // the caller's zeros cover what is not walked
 }
 
@@ -125,13 +133,16 @@ int gsl::stream_kernel_info(int which, int* out) {
 
 extern "C" {
 
-// `order` (num_tiles ints) receives the tile order the kernel ran in and
-// `last` (num_tiles x 256 ints) each pixel's last applied lane + 1: both
-// are inputs of the backward.
+// `order` (num_tiles ints) receives the tile order the kernel ran in,
+// `last` (num_tiles x 256 ints) each pixel's last applied lane + 1 and
+// `chunk_logt` (mrpad / chunk x 256 floats) each pixel's log T at the start
+// of every chunk its tile walked, at the chunk's position in the stream
+// (entries of chunks no tile walked are left as they were): all three are
+// inputs of the backward.
 int gsl_stream_fwd(const int* tstart, const int* wcount, int* order,
                    const float* stream, int num_tiles, int mrpad, int grid_x,
                    int chunk, float* accum, float* logt, float* resid,
-                   int* last, void* cuda_stream) {
+                   int* last, float* chunk_logt, void* cuda_stream) {
   if (num_tiles == 0) return 0;
   if (chunk < 1 || mrpad < chunk) return (int)cudaErrorInvalidValue;
   const int err = launch_tile_order(WalkCount{tstart, wcount, mrpad, chunk},
@@ -140,21 +151,22 @@ int gsl_stream_fwd(const int* tstart, const int* wcount, int* order,
   if (err != 0) return err;
   stream_fwd_kernel<<<num_tiles, kPix, 0, (cudaStream_t)cuda_stream>>>(
       tstart, wcount, order, num_tiles, stream, mrpad, grid_x, chunk, accum,
-      logt, resid, last);
+      logt, resid, last, chunk_logt);
   return (int)cudaGetLastError();
 }
 
-// `order`, `logt` and `last` are the forward's.
+// `order`, `logt`, `last` and `chunk_logt` are the forward's.
 int gsl_stream_bwd(const int* tstart, const int* wcount, const int* order,
                    const float* stream, int num_tiles, int mrpad, int grid_x,
                    int chunk, const float* gacc, const float* glogt,
-                   const float* logt, const int* last, float* dstream,
+                   const float* logt, const int* last,
+                   const float* chunk_logt, float* dstream,
                    void* cuda_stream) {
   if (num_tiles == 0) return 0;
   if (chunk < 1 || mrpad < chunk) return (int)cudaErrorInvalidValue;
   stream_bwd_kernel<<<num_tiles, kPix, 0, (cudaStream_t)cuda_stream>>>(
       tstart, wcount, order, num_tiles, stream, mrpad, grid_x, chunk, gacc,
-      glogt, logt, last, dstream);
+      glogt, logt, last, chunk_logt, dstream);
   return (int)cudaGetLastError();
 }
 

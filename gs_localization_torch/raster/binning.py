@@ -129,6 +129,7 @@ class StreamBins(NamedTuple):
     tile_overflow: torch.Tensor  # () bool: stream truncated at max_render
     max_tile_count: torch.Tensor  # () int32
     align: int = 256             # window alignment the stream was built with
+    fast_k: int = 1              # fast slots per rank (pos_by_slot's layout)
 
 
 def _arange(n: int, device) -> torch.Tensor:
@@ -298,6 +299,7 @@ def bin_stream(
         tile_overflow=kept_true > mr,
         max_tile_count=max_tile_count,
         align=align,
+        fast_k=fast_k,
     )
 
 

@@ -68,14 +68,16 @@ def _window_block(geom, rgbd, count, chunk: int):
 
 def pregathered_blend_fwd_plain(counts: torch.Tensor, geom: torch.Tensor,
                                 rgbd: torch.Tensor, grid_x: int, ts: int,
-                                chunk: int, dtype=torch.float32):
+                                chunk: int, dtype=torch.float32,
+                                tile0: int = 0):
     """K3's outputs in plain PyTorch: accum (T,4,npix), log_t (T,npix,1),
     resid (T,npix,2) = [log_full, k_stop], computed in ``dtype`` (float64
-    is the yardstick for the float32 versions)."""
+    is the yardstick for the float32 versions). Window t holds the pairs
+    of image tile ``tile0 + t``."""
     num_tiles, _, cap = geom.shape
     npix = ts * ts
     count = _counts(counts, cap)
-    tiles = torch.arange(num_tiles, device=geom.device)
+    tiles = tile0 + torch.arange(num_tiles, device=geom.device)
     geom, rgbd = geom.to(dtype), rgbd.to(dtype)
     out = dict(dtype=dtype, device=geom.device)
     accum = torch.zeros((num_tiles, 4, npix), **out)
@@ -96,14 +98,15 @@ def pregathered_blend_fwd_plain(counts: torch.Tensor, geom: torch.Tensor,
 def pregathered_blend_bwd_plain(counts: torch.Tensor, geom: torch.Tensor,
                                 rgbd: torch.Tensor, gacc: torch.Tensor,
                                 glogt: torch.Tensor, grid_x: int, ts: int,
-                                chunk: int, dtype=torch.float32):
+                                chunk: int, dtype=torch.float32,
+                                tile0: int = 0):
     """K4's (dgeom (T,8,cap), drgbd (T,4,cap)) in plain PyTorch: autograd
     through the plain forward, one block of tiles at a time, in ``dtype``.
     Lanes past a tile's count or its last visited chunk are zero."""
     num_tiles, _, cap = geom.shape
     npix = ts * ts
     count = _counts(counts, cap)
-    tiles = torch.arange(num_tiles, device=geom.device)
+    tiles = tile0 + torch.arange(num_tiles, device=geom.device)
     geom, rgbd = geom.to(dtype), rgbd.to(dtype)
     gacc, glogt = gacc.to(dtype), glogt.to(dtype)
     dgeom = torch.zeros_like(geom)
@@ -138,11 +141,11 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _kernels.load()
-    lib.gsl_pregathered_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P,
-                                        _P, _P, _P, _P]
-    lib.gsl_pregathered_fwd.restype = _I
-    lib.gsl_pregathered_bwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P,
+    lib.gsl_pregathered_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                         _P, _P, _P, _P, _P, _P]
+    lib.gsl_pregathered_fwd.restype = _I
+    lib.gsl_pregathered_bwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _P, _P, _P, _P, _P, _P, _P, _P]
     lib.gsl_pregathered_bwd.restype = _I
     return lib
 
@@ -176,14 +179,15 @@ def _check_common(counts, geom, rgbd, ts: int, chunk: int) -> None:
 
 
 def pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x: int, ts: int,
-                               chunk: int):
+                               chunk: int, tile0: int = 0):
     """Launch K3: -> accum (T,4,npix), log_t (T,npix,1), resid (T,npix,2)
-    and the ``BlendWalk`` that K4 takes."""
+    and the ``BlendWalk`` that K4 takes. Window t holds the pairs of image
+    tile ``tile0 + t``."""
     _check_common(counts, geom, rgbd, ts, chunk)
     lib = _lib()
     num_tiles, _, cap = geom.shape
     npix = ts * ts
-    walk = _new_walk(num_tiles, npix, geom.device)
+    walk = _new_walk(num_tiles, npix, (num_tiles, cap // chunk), geom.device)
     out = dict(dtype=torch.float32, device=geom.device)
     accum = torch.empty((num_tiles, 4, npix), **out)
     log_t = torch.empty((num_tiles, npix, 1), **out)
@@ -192,8 +196,9 @@ def pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x: int, ts: int,
         cs = torch.cuda.current_stream().cuda_stream
         rc = lib.gsl_pregathered_fwd(
             counts.data_ptr(), walk.order.data_ptr(), geom.data_ptr(),
-            rgbd.data_ptr(), num_tiles, cap, grid_x, chunk, accum.data_ptr(),
-            log_t.data_ptr(), resid.data_ptr(), walk.last.data_ptr(), cs)
+            rgbd.data_ptr(), num_tiles, cap, grid_x, chunk, tile0,
+            accum.data_ptr(), log_t.data_ptr(), resid.data_ptr(),
+            walk.last.data_ptr(), walk.chunk_logt.data_ptr(), cs)
     _raise_on(lib, rc, "pregathered blend forward launch")
     LAUNCHES["pregathered_fwd"] += 1
     return accum, log_t, resid, walk
@@ -201,7 +206,7 @@ def pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x: int, ts: int,
 
 def pregathered_blend_bwd_cuda(counts, geom, rgbd, gacc, glogt, log_t,
                                walk: BlendWalk, grid_x: int, ts: int,
-                               chunk: int):
+                               chunk: int, tile0: int = 0):
     """Launch K4 on K3's ``log_t`` and ``walk``: -> dgeom (T,8,cap), drgbd
     (T,4,cap); the kernel writes every element, zero where no walked lane
     is."""
@@ -212,7 +217,7 @@ def pregathered_blend_bwd_cuda(counts, geom, rgbd, gacc, glogt, log_t,
     _check(gacc, "gacc", torch.float32, (num_tiles, 4, npix), dev)
     _check(glogt, "glogt", torch.float32, (num_tiles, npix, 1), dev)
     _check(log_t, "log_t", torch.float32, (num_tiles, npix, 1), dev)
-    _check_walk(walk, num_tiles, npix, dev)
+    _check_walk(walk, num_tiles, npix, (num_tiles, cap // chunk), dev)
     lib = _lib()
     dgeom = torch.empty_like(geom)
     drgbd = torch.empty_like(rgbd)
@@ -220,8 +225,9 @@ def pregathered_blend_bwd_cuda(counts, geom, rgbd, gacc, glogt, log_t,
         cs = torch.cuda.current_stream().cuda_stream
         rc = lib.gsl_pregathered_bwd(
             counts.data_ptr(), walk.order.data_ptr(), geom.data_ptr(),
-            rgbd.data_ptr(), num_tiles, cap, grid_x, chunk, gacc.data_ptr(),
-            glogt.data_ptr(), log_t.data_ptr(), walk.last.data_ptr(),
+            rgbd.data_ptr(), num_tiles, cap, grid_x, chunk, tile0,
+            gacc.data_ptr(), glogt.data_ptr(), log_t.data_ptr(),
+            walk.last.data_ptr(), walk.chunk_logt.data_ptr(),
             dgeom.data_ptr(), drgbd.data_ptr(), cs)
     _raise_on(lib, rc, "pregathered blend backward launch")
     LAUNCHES["pregathered_bwd"] += 1
@@ -233,27 +239,28 @@ def pregathered_blend_bwd_cuda(counts, geom, rgbd, gacc, glogt, log_t,
 # ---------------------------------------------------------------------------
 
 def pregathered_blend_fwd(counts, geom, rgbd, grid_x: int, ts: int,
-                          chunk: int):
+                          chunk: int, tile0: int = 0):
     """K3 on CUDA tensors, its plain version on CPU tensors: -> accum,
     log_t, resid and the walk for the backward (None on the CPU)."""
     if geom.is_cuda:
         return pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x, ts,
-                                          chunk)
+                                          chunk, tile0)
     if geom.device.type == "cpu":
         return (*pregathered_blend_fwd_plain(counts, geom, rgbd, grid_x, ts,
-                                             chunk), None)
+                                             chunk, tile0=tile0), None)
     raise ValueError(f"unsupported device {geom.device}")
 
 
 def pregathered_blend_bwd(counts, geom, rgbd, gacc, glogt, log_t, walk,
-                          grid_x: int, ts: int, chunk: int):
+                          grid_x: int, ts: int, chunk: int, tile0: int = 0):
     """K4 on CUDA tensors, its plain version on CPU tensors."""
     if geom.is_cuda:
         return pregathered_blend_bwd_cuda(counts, geom, rgbd, gacc, glogt,
-                                          log_t, walk, grid_x, ts, chunk)
+                                          log_t, walk, grid_x, ts, chunk,
+                                          tile0)
     if geom.device.type == "cpu":
         return pregathered_blend_bwd_plain(counts, geom, rgbd, gacc, glogt,
-                                           grid_x, ts, chunk)
+                                           grid_x, ts, chunk, tile0=tile0)
     raise ValueError(f"unsupported device {geom.device}")
 
 
@@ -262,22 +269,23 @@ class _PregatheredBlend(torch.autograd.Function):
     backward -> (None, dgeom, drgbd)."""
 
     @staticmethod
-    def forward(ctx, counts, geom, rgbd, grid_x, ts, chunk):
+    def forward(ctx, counts, geom, rgbd, grid_x, ts, chunk, tile0):
         accum, log_t, _, walk = pregathered_blend_fwd(counts, geom, rgbd,
-                                                      grid_x, ts, chunk)
+                                                      grid_x, ts, chunk,
+                                                      tile0)
         ctx.save_for_backward(counts, geom, rgbd, log_t)
         ctx.walk = walk
-        ctx.cfg = (grid_x, ts, chunk)
+        ctx.cfg = (grid_x, ts, chunk, tile0)
         return accum, log_t
 
     @staticmethod
     def backward(ctx, gacc, glogt):
         counts, geom, rgbd, log_t = ctx.saved_tensors
-        grid_x, ts, chunk = ctx.cfg
+        grid_x, ts, chunk, tile0 = ctx.cfg
         dgeom, drgbd = pregathered_blend_bwd(
             counts, geom, rgbd, gacc.contiguous(), glogt.contiguous(), log_t,
-            ctx.walk, grid_x, ts, chunk)
-        return None, dgeom, drgbd, None, None, None
+            ctx.walk, grid_x, ts, chunk, tile0)
+        return None, dgeom, drgbd, None, None, None, None
 
 
 def blend_pregathered_pallas(
@@ -287,9 +295,11 @@ def blend_pregathered_pallas(
     grid_x: int,
     tile_size: int,
     chunk: int = 256,
+    tile0: int = 0,
 ) -> TileBlendOut:
     """Blend already-gathered per-pair rows (pose mode's ``PairPack``);
-    grads flow to ``geom`` and ``rgbd``."""
+    grads flow to ``geom`` and ``rgbd``. Window t holds the pairs of image
+    tile ``tile0 + t`` (a run of tiles: ``blend.blend_tiles``' ``pix``)."""
     cap = geom.shape[2]
     chunk = min(chunk, cap)
     if cap % chunk:
@@ -297,7 +307,7 @@ def blend_pregathered_pallas(
                          f"chunk {chunk}")
     accum, log_t = _PregatheredBlend.apply(
         tile_counts, geom.contiguous(), rgbd.contiguous(), grid_x,
-        tile_size, chunk)
+        tile_size, chunk, tile0)
     return _tile_out(accum, log_t)
 
 

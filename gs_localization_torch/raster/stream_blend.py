@@ -241,33 +241,51 @@ _I = ctypes.c_int
 
 class BlendWalk(NamedTuple):
     """What a CUDA blend forward (K1, K3) records for its backward (K2,
-    K4): the tile order it ran in, (T,) int32, and for each pixel one past
-    the window lane of the last pair it applied, (T, npix) int32 (0 where
-    it applied none). The backward runs in that order and is the adjoint
-    of exactly those pairs."""
+    K4): the tile order it ran in, (T,) int32; for each pixel one past the
+    window lane of the last pair it applied, (T, npix) int32 (0 where it
+    applied none); and each pixel's log T at the start of every chunk its
+    tile walked, float32 (0 at chunks no tile walked): (mrpad / chunk, npix)
+    by the chunk's position in the stream for K1, (T, cap / chunk, npix)
+    for K3. The backward runs in that order, is the adjoint of exactly
+    those pairs, and starts each chunk's reverse walk from the forward's own
+    log T."""
     order: torch.Tensor
     last: torch.Tensor
+    chunk_logt: torch.Tensor
 
 
-def _new_walk(num_tiles: int, npix: int, device) -> BlendWalk:
+def _new_walk(num_tiles: int, npix: int, chunks: tuple, device) -> BlendWalk:
+    """A walk to fill; ``chunks`` is the shape of the records' leading
+    dimensions. The records start at 0, so that two launches on the same
+    inputs give the same bits everywhere."""
     out = dict(dtype=torch.int32, device=device)
     return BlendWalk(torch.empty((num_tiles,), **out),
-                     torch.empty((num_tiles, npix), **out))
+                     torch.empty((num_tiles, npix), **out),
+                     torch.zeros((*chunks, npix), dtype=torch.float32,
+                                 device=device))
 
 
-def _check_walk(walk: BlendWalk, num_tiles: int, npix: int, device) -> None:
+def _check_walk(walk: BlendWalk, num_tiles: int, npix: int, chunks: tuple,
+                device) -> None:
     _check(walk.order, "walk.order", torch.int32, (num_tiles,), device)
     _check(walk.last, "walk.last", torch.int32, (num_tiles, npix), device)
+    _check(walk.chunk_logt, "walk.chunk_logt", torch.float32,
+           (*chunks, npix), device)
+
+
+def _stream_chunks(mrpad: int, chunk: int) -> tuple:
+    """K1's records: one row per chunk of the stream."""
+    return (-(-mrpad // chunk),)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _kernels.load()
     lib.gsl_stream_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                   _P, _P, _P]
+                                   _P, _P, _P, _P]
     lib.gsl_stream_fwd.restype = _I
     lib.gsl_stream_bwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                   _P, _P, _P, _P]
+                                   _P, _P, _P, _P, _P]
     lib.gsl_stream_bwd.restype = _I
     return lib
 
@@ -320,7 +338,8 @@ def stream_blend_fwd_cuda(stream, tstart, walk_counts, grid_x: int, ts: int,
     lib = _lib()
     num_tiles = tstart.shape[0]
     npix = ts * ts
-    walk = _new_walk(num_tiles, npix, stream.device)
+    walk = _new_walk(num_tiles, npix,
+                     _stream_chunks(stream.shape[1], chunk), stream.device)
     out = dict(dtype=torch.float32, device=stream.device)
     accum = torch.empty((num_tiles, 4, npix), **out)
     log_t = torch.empty((num_tiles, npix, 1), **out)
@@ -331,7 +350,7 @@ def stream_blend_fwd_cuda(stream, tstart, walk_counts, grid_x: int, ts: int,
             tstart.data_ptr(), walk_counts.data_ptr(), walk.order.data_ptr(),
             stream.data_ptr(), num_tiles, stream.shape[1], grid_x, chunk,
             accum.data_ptr(), log_t.data_ptr(), resid.data_ptr(),
-            walk.last.data_ptr(), cs)
+            walk.last.data_ptr(), walk.chunk_logt.data_ptr(), cs)
     _raise_on(lib, rc, "stream blend forward launch")
     LAUNCHES["stream_fwd"] += 1
     return accum, log_t, resid, walk
@@ -349,7 +368,8 @@ def stream_blend_bwd_cuda(stream, tstart, walk_counts, gacc, glogt, log_t,
     _check(gacc, "gacc", torch.float32, (num_tiles, 4, npix), dev)
     _check(glogt, "glogt", torch.float32, (num_tiles, npix, 1), dev)
     _check(log_t, "log_t", torch.float32, (num_tiles, npix, 1), dev)
-    _check_walk(walk, num_tiles, npix, dev)
+    _check_walk(walk, num_tiles, npix,
+                _stream_chunks(stream.shape[1], chunk), dev)
     lib = _lib()
     dstream = torch.zeros_like(stream)
     with torch.cuda.device(dev):
@@ -358,7 +378,8 @@ def stream_blend_bwd_cuda(stream, tstart, walk_counts, gacc, glogt, log_t,
             tstart.data_ptr(), walk_counts.data_ptr(), walk.order.data_ptr(),
             stream.data_ptr(), num_tiles, stream.shape[1], grid_x, chunk,
             gacc.data_ptr(), glogt.data_ptr(), log_t.data_ptr(),
-            walk.last.data_ptr(), dstream.data_ptr(), cs)
+            walk.last.data_ptr(), walk.chunk_logt.data_ptr(),
+            dstream.data_ptr(), cs)
     _raise_on(lib, rc, "stream blend backward launch")
     LAUNCHES["stream_bwd"] += 1
     return dstream
@@ -453,11 +474,13 @@ def assemble_stream(pack: torch.Tensor, gid_of_pos: torch.Tensor,
     R.. zero; the dead row P (zero params) is gated out of the blend.
 
     The gather is an ``index_select``, whose adjoint is ``index_add_``
-    (atomic adds on the card, so the sums' order varies between runs).
-    Advanced indexing's adjoint would sort the positions and walk each
-    Gaussian's duplicates serially: every alignment gap points at the dead
-    row, hundreds of thousands of duplicates of one index in a training
-    view, which made that adjoint most of a training step on the card."""
+    (atomic adds on the card, so the sums' order varies between runs);
+    ``blend_stream`` takes the stream's gradient in slot order instead
+    (``slot_order_pack_grad``). Advanced indexing's adjoint would sort the
+    positions and walk each Gaussian's duplicates serially: every alignment
+    gap points at the dead row, hundreds of thousands of duplicates of one
+    index in a training view, which made that adjoint most of a training
+    step on the card."""
     rows = pack.shape[1]
     if rows > _RPAD:
         raise ValueError(f"pack has {rows} rows, the stream holds {_RPAD}")
@@ -469,6 +492,76 @@ def assemble_stream(pack: torch.Tensor, gid_of_pos: torch.Tensor,
     return torch.cat([stream_t, pack.new_zeros((_RPAD, chunk))], dim=1)
 
 
+def slot_order_pack_grad(dstream_t: torch.Tensor, sbins: StreamBins,
+                         rows: int) -> torch.Tensor:
+    """The stream's cotangent (16, MR_AL+chunk) reduced to the per-Gaussian
+    rows (P, rows) in slot order, as the JAX ``_make_stream_core`` backward
+    does (``raster/stream_blend.py:400-417`` of the JAX package): zero the
+    positions past ``kept_al``; gather each pair slot's row by
+    ``pos_by_slot`` (unmapped slots point at position MR_AL, which is
+    zero); sum each rank's ``fast_k`` fast slots; sum each rank's slow
+    segment as the difference of a running sum over the slow pool at
+    ``slow_starts``; write the ranks' rows to their Gaussians by ``order``.
+
+    Every step is a gather, a sum in an order fixed by the shapes, or a
+    write to unique indices: no atomics, so the result has the same bits on
+    every run. The running sum is float64 (JAX's is float32, whose
+    differences lose the digits of a small segment beside the pool's
+    total) and blocked (``_running_sum``)."""
+    p = sbins.order.shape[0]
+    fast_k = sbins.fast_k
+    dev = dstream_t.device
+    drows = dstream_t[:rows].T                            # (mrpad, rows)
+    pos_ok = torch.arange(drows.shape[0], device=dev) < sbins.kept_al
+    drows = torch.where(pos_ok[:, None], drows, torch.zeros_like(drows))
+    dslot = torch.index_select(drows, 0, sbins.pos_by_slot.long())
+    nfast = p * fast_k
+    dranked = dslot[:nfast].reshape(p, fast_k, rows).sum(dim=1)
+    cum = _running_sum(dslot[nfast:])
+    bounds = torch.clamp(sbins.slow_starts.long(), 0, cum.shape[0] - 1)
+    dranked = dranked + (cum[bounds[1:]] - cum[bounds[:-1]]).to(
+        dranked.dtype)
+    return torch.zeros_like(dranked).index_copy_(0, sbins.order.long(),
+                                                 dranked)
+
+
+_SCAN_BLOCK = 256
+
+
+def _running_sum(x: torch.Tensor) -> torch.Tensor:
+    """(n, R) -> (n + 1, R) float64 exclusive running sums down dim 0, in
+    an order fixed by the shape: blocks of _SCAN_BLOCK rows are scanned
+    one row after another (PyTorch scans a dimension that is neither the
+    only nor the last one with one thread per column, in order), and the
+    blocks' totals the same way, recursively. A scan of the whole column at
+    once would take the card's decoupled look-back, whose association
+    varies between runs."""
+    n, r = x.shape
+    x = x.to(torch.float64)
+    nb = -(-n // _SCAN_BLOCK)
+    blocks = torch.cat([x, x.new_zeros((nb * _SCAN_BLOCK - n, r))]).reshape(
+        nb, _SCAN_BLOCK, r).cumsum(dim=1)
+    if nb > 1:
+        blocks = blocks + _running_sum(blocks[:, -1])[:-1, None, :]
+    return torch.cat([x.new_zeros((1, r)),
+                      blocks.reshape(nb * _SCAN_BLOCK, r)[:n]])
+
+
+class _SlotOrderStream(torch.autograd.Function):
+    """``assemble_stream`` forward; backward ``slot_order_pack_grad``."""
+
+    @staticmethod
+    def forward(ctx, pack, sbins, chunk):
+        ctx.sbins = sbins
+        ctx.rows = pack.shape[1]
+        return assemble_stream(pack, sbins.gid_of_pos, chunk)
+
+    @staticmethod
+    def backward(ctx, dstream_t):
+        return (slot_order_pack_grad(dstream_t, ctx.sbins, ctx.rows), None,
+                None)
+
+
 def blend_stream(
     pack: torch.Tensor,        # (P, 12) per-Gaussian rows (original order)
     sbins: StreamBins,
@@ -477,12 +570,12 @@ def blend_stream(
     chunk: int = 256,
 ) -> TileBlendOut:
     """Counterpart of the JAX ``blend_stream_pallas``. Gradients reach
-    ``pack`` through the adjoint of the gather in ``assemble_stream``
-    (``index_add_``): the same function as the JAX slot-order reduction,
-    which is a TPU device against scatters."""
+    ``pack`` through the slot-order reduction of the stream's cotangent
+    (``slot_order_pack_grad``, JAX's own backward), so a training step has
+    the same bits on every run."""
     if sbins.align != chunk:
         raise ValueError(f"stream aligned to {sbins.align}, blend chunk "
                          f"{chunk}: the backward needs align == chunk")
-    stream_t = assemble_stream(pack, sbins.gid_of_pos, chunk)
+    stream_t = _SlotOrderStream.apply(pack, sbins, chunk)
     return blend_stream_direct(stream_t, sbins.tstart, sbins.walk_counts,
                                sbins.kept_al, grid_x, tile_size, chunk)

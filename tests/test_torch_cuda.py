@@ -385,14 +385,22 @@ def test_kernels_follow_their_forward_after_long_walks(cuda_device):
 def test_stream_kernels_equal_pregathered_kernels(cuda_device, chunk):
     """K1/K2 and K3/K4 run one forward and one backward body, so on the
     same windows (tile t's at stream position t * cap) they give the same
-    bits: the forward's outputs and walks, and the backward's gradients at
-    every lane, zeros included."""
+    bits: the forward's outputs and walks (K1's log T records, one row per
+    stream chunk, are K3's (T, cap / chunk) records laid end to end), and
+    the backward's gradients at every lane, zeros included."""
     (counts, geom, rgbd), (stream, tstart, wcount) = _edge_inputs(
         chunk, cuda_device)
     gx = EDGE_GRID[0]
     out_s = sb.stream_blend_fwd_cuda(stream, tstart, wcount, gx, 16, chunk)
     out_g = pb.pregathered_blend_fwd_cuda(counts, geom, rgbd, gx, 16, chunk)
-    assert _same(out_s, out_g)
+    num_tiles, _, cap = geom.shape
+    rec_s = out_s[3].chunk_logt
+    assert all(torch.equal(a, b) for a, b in zip(out_s[:3], out_g[:3]))
+    assert torch.equal(out_s[3].order, out_g[3].order)
+    assert torch.equal(out_s[3].last, out_g[3].last)
+    assert torch.equal(rec_s[:num_tiles * cap // chunk].reshape(
+        out_g[3].chunk_logt.shape), out_g[3].chunk_logt)
+    assert (rec_s[num_tiles * cap // chunk:] == 0).all()
     gacc, glogt = _cotangents(out_s[0], out_s[1],
                               torch.ones_like(out_s[1][..., 0]))
     d_s = sb.stream_blend_bwd_cuda(stream, tstart, wcount, gacc, glogt,
@@ -401,7 +409,6 @@ def test_stream_kernels_equal_pregathered_kernels(cuda_device, chunk):
                                                  glogt, out_g[1], out_g[3],
                                                  gx, 16, chunk)
     torch.cuda.synchronize()
-    num_tiles, _, cap = geom.shape
     blocks = d_s[:12, :num_tiles * cap].reshape(12, num_tiles, cap)
     assert torch.equal(blocks[:8].transpose(0, 1), dgeom)
     assert torch.equal(blocks[8:].transpose(0, 1), drgbd)
@@ -434,9 +441,9 @@ def test_pregathered_cuda_path_matches_cpu_path(case):
 @pytest.mark.parametrize("layout", ["pregathered", "stream"])
 def test_train_step_cuda_matches_cpu(case, layout):
     """One train_step on the card and on the CPU, on the pregathered
-    layout (K3/K4) and on the stream layout (K1/K2 and the gather's
-    ``index_add_`` adjoint, whose atomic sums vary in order: tolerances,
-    not bits)."""
+    layout (K3/K4) and on the stream layout (K1/K2 and the slot-order
+    pack gradient): the two devices sum in other orders, so tolerances,
+    not bits."""
     cfg = case["pre"] if layout == "pregathered" else case["cfg"]
     tau = torch.tensor([0.01, -0.008, 0.012, 0.02, -0.015, 0.01])
     res = []
@@ -893,3 +900,152 @@ def test_hloc_global_descriptors_cuda_match_cpu(cuda_device):
         assert bool(torch.isfinite(dg).all())
         assert float((dg.cpu() - dc).abs().max()) <= 1e-4 * float(
             dc.abs().max())
+
+
+# ---- the id-matrix blend, reproducible stream training, a 1-rank NCCL group --
+
+def test_blend_tiles_cuda_matches_plain_at_a_tile_run(case):
+    """``blend.blend_tiles`` on the card (the windows gathered, K3/K4 with
+    the run's first tile ``tile0`` = 2) against its plain version on the
+    same inputs (K3's plain forward at that tile0) and against the CPU
+    path (the scan): images, and the gradients of a seeded loss in every
+    blend input."""
+    from gs_localization_torch.raster import blend as tblend
+    from gs_localization_torch.raster.preprocess import preprocess
+    from gs_localization_torch.raster.rasterize import bin_gaussians_for
+
+    cfg, chunk = case["pre"], case["chunk"]
+    lo, hi = 2, 20                                   # tiles of the 6 x 4 grid
+    outs = []
+    for dev in (case["device"], torch.device("cpu")):
+        g, cam = _on(case["arrays"], dev)
+        with torch.no_grad():
+            prep = preprocess(g, cam)
+            bins = bin_gaussians_for(prep, cam, cfg)
+        fields = [x.detach().clone().requires_grad_() for x in (
+            prep.means2d, prep.conic, prep.rgb, prep.opacity, prep.depths)]
+        pix = tblend.tile_pixel_coords(6, 4, 16, dev)[lo:hi]
+        before = dict(gsl.LAUNCHES)
+        out = tblend.blend_tiles(bins.tile_gid[lo:hi], bins.tile_mask[lo:hi],
+                                 *fields, 6, 4, 16, chunk=32, pix=pix,
+                                 pallas_chunk=chunk)
+        gen = torch.Generator().manual_seed(3)
+        w = [torch.randn(x.shape, generator=gen).to(dev)
+             for x in (out.color, out.depth, out.log_t)]
+        loss = ((out.color * w[0]).sum() + (out.depth * w[1]).sum()
+                + (torch.exp(out.log_t) * w[2]).sum())
+        grads = torch.autograd.grad(loss, fields)
+        if dev.type == "cuda":
+            assert gsl.LAUNCHES["pregathered_fwd"] == \
+                before["pregathered_fwd"] + 1
+            assert gsl.LAUNCHES["pregathered_bwd"] == \
+                before["pregathered_bwd"] + 1
+            geom, rgbd = pb.gather_windows(bins.tile_gid[lo:hi], *(
+                f.detach() for f in fields))
+            counts = bins.tile_mask[lo:hi].sum(1, dtype=torch.int32)
+            acc_p, logt_p, _ = pb.pregathered_blend_fwd_plain(
+                counts, geom, rgbd, 6, 16, min(chunk, geom.shape[2]),
+                tile0=lo)
+            torch.testing.assert_close(out.color.detach(),
+                                       acc_p[:, :3].transpose(1, 2),
+                                       atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(torch.exp(out.log_t.detach()),
+                                       torch.exp(logt_p[..., 0]), atol=1e-5,
+                                       rtol=1e-5)
+        outs.append(([x.detach().cpu() for x in out], [
+            x.cpu() for x in grads]))
+    (img_k, gr_k), (img_p, gr_p) = outs
+    torch.testing.assert_close(img_k[0], img_p[0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(img_k[1], img_p[1], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(torch.exp(img_k[2]), torch.exp(img_p[2]),
+                               atol=1e-5, rtol=1e-5)
+    for name, a, b in zip(("means2d", "conic", "rgb", "opacity", "depths"),
+                          gr_k, gr_p):
+        scale = float(b.abs().max())
+        assert scale > 0, name
+        torch.testing.assert_close(a / scale, b / scale, atol=5e-3,
+                                   rtol=1e-2, msg=name)
+
+
+def test_stream_training_is_bit_reproducible(case):
+    """Twenty stream ``train_step``s (K1/K2 and the slot-order pack
+    gradient, no atomics) run twice from one state give bit-equal
+    parameters and Adam moments."""
+    cfg = case["cfg"]
+    g, cam = _on(case["arrays"], case["device"])
+    rng = np.random.default_rng(5)
+    views = []
+    with torch.no_grad():
+        for _ in range(4):
+            c = cam.with_delta(torch.tensor(
+                0.02 * rng.standard_normal(6), dtype=torch.float32,
+                device=case["device"]))
+            gt = rasterize(g, c, cfg)
+            views.append((c, gt.color, gt.depth))
+    mcfg = mtrain.MapTrainConfig()
+
+    def run():
+        state = mtrain.init_training(g, mcfg)
+        for k in range(20):
+            c, im, dp = views[k % len(views)]
+            state, _ = mtrain.train_step(state, c, im, mcfg, cfg,
+                                         gt_depth=dp)
+        return state
+
+    a, b = run(), run()
+    for name in TRAINED:
+        assert torch.equal(getattr(a.gaussians, name),
+                           getattr(b.gaussians, name)), name
+        assert torch.equal(a.opt_state[name].mu, b.opt_state[name].mu), name
+    assert not torch.equal(a.gaussians.xyz, g.xyz)
+
+
+def test_one_rank_nccl_group_matches_unsharded(case):
+    """A world-size-1 NCCL group on the card: ``dp_train_grads`` over 2
+    cameras and ``rasterize_tile_sharded`` against the unsharded port (the
+    collectives run; one rank's mean is the mean)."""
+    import socket
+
+    import torch.distributed as dist
+    from gs_localization_torch.mapping import losses
+    from gs_localization_torch.parallel import dp, runtime
+    from gs_localization_torch.parallel.tile_shard import (
+        rasterize_tile_sharded)
+
+    cfg = case["pre"]
+    g, cam = _on(case["arrays"], case["device"])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = runtime.global_mesh(("data",))
+        assert mesh.group("data") is not None
+        cams = [cam, cam.with_delta(torch.tensor(
+            [0.01, 0.0, -0.01, 0.02, 0.0, 0.01], device=case["device"]))]
+        imgs = torch.rand((2, 64, 96, 3), generator=torch.Generator()
+                          .manual_seed(0)).to(case["device"])
+        loss, grads = dp.dp_train_grads(mesh, g, cams, imgs, cfg)
+        ref_l, ref_g = [], []
+        for c, im in zip(cams, imgs):
+            p = {k: getattr(g, k).detach().requires_grad_() for k in TRAINED}
+            out = rasterize(g.replace(**p), c, cfg)
+            loss_i = losses.training_loss(out.color, im)[0]
+            ref_l.append(loss_i.detach())
+            ref_g.append(torch.autograd.grad(loss_i, [p[k] for k in TRAINED]))
+        assert float(loss) == pytest.approx(float(sum(ref_l) / 2), rel=1e-6)
+        for i, name in enumerate(TRAINED):
+            torch.testing.assert_close(grads[name],
+                                       (ref_g[0][i] + ref_g[1][i]) / 2,
+                                       atol=1e-6, rtol=1e-5, msg=name)
+        tmesh = runtime.global_mesh(("tile",))
+        out_s = rasterize_tile_sharded(tmesh, g, cam, cfg)
+        with torch.no_grad():
+            out_r = rasterize(g, cam, cfg)
+        torch.testing.assert_close(out_s.color, out_r.color, atol=1e-5,
+                                   rtol=0)
+        torch.testing.assert_close(out_s.depth, out_r.depth, atol=1e-4,
+                                   rtol=0)
+    finally:
+        dist.destroy_process_group()

@@ -57,7 +57,34 @@ def test_scan_covers_the_package():
             "adalam.py", "match_dense.py", "evaluate.py",
             "sfm_init.py", "lightglue.py", "loftr.py", "d2net.py",
             "r2d2.py", "disk.py", "dir.py", "openibl.py",
-            "eigenplaces.py"} <= names
+            "eigenplaces.py", "viz.py", "runtime.py", "dp.py",
+            "tile_shard.py", "gauss_shard.py", "dryrun.py"} <= names
+
+
+def test_parallel_and_viz_import_without_jax_or_matplotlib():
+    """``gs_localization_torch.parallel.*`` and ``sfm.viz`` import in a
+    fresh process without JAX; the package and every module but
+    ``sfm.viz`` import without matplotlib, which the card machine does not
+    have."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import gs_localization_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'gs_localization_torch.'):\n"
+        "    if m.name != 'gs_localization_torch.sfm.viz':\n"
+        "        importlib.import_module(m.name)\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib imported'\n"
+        "from gs_localization_torch.parallel import (dp, dryrun, gauss_shard,\n"
+        "                                            runtime, tile_shard)\n"
+        "from gs_localization_torch.sfm import viz\n"
+        "assert 'matplotlib' in sys.modules\n"
+        "assert not any(n.split('.')[0] in ('jax', 'jaxlib', "
+        "'gs_localization_tpu') for n in sys.modules), 'jax imported'\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_imports_without_nvcc_or_triton(tmp_path):

@@ -135,10 +135,10 @@ def _pack_of(prep):
 
 
 def test_stream_pack_grad_matches_make_stream_core(scene):
-    """The pack cotangent of the stream blend: the port's adjoint of the
-    ``assemble_stream`` gather (``index_put`` with accumulation) against
-    the JAX ``_make_stream_core``, whose backward reduces the grad stream
-    in slot order, with the Pallas kernels in interpret mode."""
+    """The pack cotangent of the stream blend: the port's slot-order
+    reduction of the grad stream (``blend_stream``'s backward) against the
+    JAX ``_make_stream_core``, whose backward reduces it in slot order too,
+    with the Pallas kernels in interpret mode."""
     g, cam, tg, tcam = scene
     pack = np.asarray(_pack_of(j_preprocess(g, cam)))
     jb = j_bins(g, cam, J_CFG)

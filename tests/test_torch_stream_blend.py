@@ -262,3 +262,62 @@ def test_drift_window_defeats_a_rebuilt_log_t():
     off = (np.abs(d_j - d)[:12, own]
            / (5e-3 + 1e-2 * np.abs(d[:12, own])))
     assert off.max() > 1
+
+
+def test_slot_order_pack_grad_matches_jax_core_bwd():
+    """The pack gradient's reduction alone: the grad stream that the JAX
+    ``_make_stream_core`` backward reduces (its K2 in interpret mode on the
+    same inputs) through the port's ``slot_order_pack_grad`` against the
+    pack cotangent of that core's VJP. Fast slots (fast_k 1) and slow
+    segments both carry pairs. Tolerance: 1e-5 of the largest |gradient|
+    (JAX takes the slow segments' sums as differences of a float32 running
+    sum over the whole slow pool, the port of a float64 one)."""
+    from gs_localization_tpu.raster.preprocess import preprocess as j_prep
+    from gs_localization_tpu.raster.rasterize import compute_bins as j_bins
+    from gs_localization_torch.raster.binning import StreamBins
+
+    g = random_scene(np.random.default_rng(7), 150, sh_degree=1,
+                     scale_range=(-3.0, -1.8))
+    cam = make_camera(32, 32, fov=1.0)
+    chunk, fast_k, grid_x = 64, 1, 2
+    cfg = JConfig(max_pairs=1 << 14, max_render=1 << 14, fast_k=fast_k,
+                  backend="pallas_interpret", pallas_chunk=chunk)
+    prep = jax.jit(j_prep)(g, cam)      # eager JAX compiles every op
+    pack = jnp.stack(
+        [prep.means2d[:, 0], prep.means2d[:, 1], prep.conic[:, 0],
+         prep.conic[:, 1], prep.conic[:, 2], prep.opacity,
+         prep.valid.astype(jnp.float32), jnp.zeros_like(prep.opacity),
+         prep.rgb[:, 0], prep.rgb[:, 1], prep.rgb[:, 2], prep.depths], axis=1)
+    jb = jax.jit(lambda g_, c: j_bins(g_, c, cfg))(g, cam)
+    p, num_tiles = pack.shape[0], int(jb.tstart.shape[0])
+    mr_al, s = int(jb.gid_of_pos.shape[0]), int(jb.pos_by_slot.shape[0])
+    starts = np.asarray(jb.slow_starts)
+    assert starts[-1] > 0                       # some pairs are slow
+    core = jsb._make_stream_core(num_tiles, grid_x, 16, chunk, fast_k, p,
+                                 mr_al, s, True)
+    ints = (jb.gid_of_pos, jb.pos_by_slot, jb.slow_starts, jb.order,
+            jb.tstart, jb.walk_counts, jb.kept_al)
+    rng = np.random.default_rng(9)
+    gacc = jnp.asarray(rng.standard_normal((num_tiles, 4, 256)), jnp.float32)
+    glogt = jnp.asarray(rng.standard_normal((num_tiles, 256, 1)), jnp.float32)
+    dpack_j = jax.jit(lambda pk, ga, gl: jax.vjp(
+        lambda x: core(x, *ints), pk)[1]((ga, gl))[0])(pack, gacc, glogt)
+
+    tbins = StreamBins(**{f: torch.tensor(np.asarray(getattr(jb, f)))
+                          for f in StreamBins._fields
+                          if f not in ("align", "fast_k")},
+                       align=chunk, fast_k=fast_k)
+    stream_t = sb.assemble_stream(torch.tensor(np.asarray(pack)),
+                                  tbins.gid_of_pos, chunk)
+    fwd_call, bwd_call = jsb._make_stream_calls(num_tiles, grid_x, 16, chunk,
+                                                stream_t.shape[1], True)
+    st = jnp.asarray(stream_t.numpy())
+    dstream = jax.jit(lambda ts, wc, st_, ga, gl: bwd_call(
+        ts, wc, st_, ga, gl, fwd_call(ts, wc, st_)[2]))(
+            jb.tstart, jb.walk_counts, st, gacc, glogt)
+    dpack_t = np_of(sb.slot_order_pack_grad(torch.tensor(np.asarray(dstream)),
+                                            tbins, 12))
+    scale = float(np.abs(np.asarray(dpack_j)).max())
+    assert scale > 0 and (dpack_t[:, 6:8] == 0).all()
+    np.testing.assert_allclose(dpack_t, np.asarray(dpack_j), rtol=0,
+                               atol=1e-5 * scale)
