@@ -162,8 +162,10 @@
 Prints one JSON line of kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Exits non-zero at once when there is no CUDA device. ``--md-rank``
-(with ``--md-port``, ``--md-out`` and ``--md-max-per-tile``) runs one of
+(with ``--md-init``, ``--md-out`` and ``--md-max-per-tile``) runs one of
 step 18's gloo ranks; run with no arguments, the script needs one card.
+Every process group meets through a store file of its own
+(``runtime.local_rendezvous``), never a port picked ahead of time.
 """
 
 from __future__ import annotations
@@ -2309,14 +2311,6 @@ def touched_margins(label, devices, cfg, max_rows: int = 12) -> None:
               f"{apart} ULPs apart")
 
 
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def launches_delta(before: dict) -> dict:
     """The launch counters' increase since ``before``."""
     import gs_localization_torch as gsl
@@ -2328,7 +2322,7 @@ def add_launches(total: dict, more: dict) -> dict:
     return {k: total.get(k, 0) + more.get(k, 0) for k in set(total) | set(more)}
 
 
-def md_worker(rank: int, port: int, out: str, max_per_tile: int) -> None:
+def md_worker(rank: int, init: str, out: str, max_per_tile: int) -> None:
     """One of two ranks that share cuda:0 over gloo (``--md-rank``): the
     bench scene rendered tile-sharded (the 30 tile rows over 2 ranks) and
     Gaussian-sharded (100,000 / 2), written to ``out`` with the rank's
@@ -2341,7 +2335,7 @@ def md_worker(rank: int, port: int, out: str, max_per_tile: int) -> None:
         rasterize_tile_sharded)
     from gs_localization_torch.raster import RasterizerConfig
 
-    runtime.initialize_runtime(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    runtime.initialize_runtime(init, 2, rank, backend="gloo")
     dev = torch.device("cuda", 0)
     g = bench_scene(dev)
     cam = Camera.from_rt(np.eye(3), np.zeros(3), 520.0, 520.0, W, H,
@@ -2361,7 +2355,7 @@ def md_worker(rank: int, port: int, out: str, max_per_tile: int) -> None:
              gauss_color=color.cpu().numpy(), gauss_depth=depth.cpu().numpy(),
              gauss_alpha=alpha.cpu().numpy(), radii=radii.cpu().numpy(),
              launches=json.dumps(gsl.LAUNCHES))
-    torch.distributed.destroy_process_group()
+    runtime.shutdown_runtime()
 
 
 def hold_blend_tiles(g, cam, md_cfg) -> float:
@@ -2456,7 +2450,7 @@ def multi_device(g, cam, cfg, md_cfg, queries, tcfg, dev):
     import gs_localization_torch as gsl
     from gs_localization_torch.loc import refine_poses_batch
     from gs_localization_torch.mapping import losses as mlosses
-    from gs_localization_torch.parallel import dp, gauss_shard, runtime
+    from gs_localization_torch.parallel import dp, dryrun, gauss_shard, runtime
     from gs_localization_torch.parallel.tile_shard import (
         rasterize_tile_sharded)
     from gs_localization_torch.raster import rasterize
@@ -2505,8 +2499,9 @@ def multi_device(g, cam, cfg, md_cfg, queries, tcfg, dev):
     out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_md_", dir=ROOT / "build"))
     procs = []
     try:
-        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
-                                f"{free_port()}", world_size=1, rank=0)
+        dist.init_process_group(
+            "nccl", init_method=runtime.local_rendezvous(out_dir),
+            world_size=1, rank=0)
         try:
             mesh = dp.make_mesh()
             cams2 = [q.camera for q in queries[:2]]
@@ -2540,17 +2535,15 @@ def multi_device(g, cam, cfg, md_cfg, queries, tcfg, dev):
             # renders (chip_smoke.py --md-rank) and the dryrun, which run
             # on the card alongside the rest of the phase
             t0 = time.perf_counter()
-            port = free_port()
-            procs = [subprocess.Popen(
-                [sys.executable, str(ROOT / "chip_smoke.py"), "--md-rank",
-                 str(k), "--md-port", str(port), "--md-out", str(out_dir),
-                 "--md-max-per-tile", str(md_cfg.max_per_tile)], cwd=ROOT,
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                for k in range(2)]
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "gs_localization_torch.parallel.dryrun",
-                 "--nproc", "2", "--device", "cuda"], cwd=ROOT,
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            init = runtime.local_rendezvous(out_dir)
+            procs = dryrun.start_ranks(
+                [[sys.executable, str(ROOT / "chip_smoke.py"), "--md-rank",
+                  str(k), "--md-init", init, "--md-out", str(out_dir),
+                  "--md-max-per-tile", str(md_cfg.max_per_tile)]
+                 for k in range(2)]
+                + [[sys.executable, "-m",
+                    "gs_localization_torch.parallel.dryrun", "--nproc", "2",
+                    "--device", "cuda"]], out_dir, cwd=ROOT)
 
             unsh = refine_poses_batch(g, cams_q, imgs_q, masks_q, tcfg, cfg,
                                       gt_depths=deps_q)
@@ -2604,7 +2597,7 @@ def multi_device(g, cam, cfg, md_cfg, queries, tcfg, dev):
                  [loss2] + [grads2[k] for k in TRAINABLE],
                  [ref_l2] + [ref_g2[k] for k in TRAINABLE])
         finally:
-            dist.destroy_process_group()
+            runtime.shutdown_runtime()
         print(f"[multi-device] one NCCL rank on {smi}: {ms_iter:.3f} ms per "
               f"refinement iteration per rank (shard_queries_refine, {n_q} "
               f"queries x {tcfg.num_iters}), {ms_dp:.3f} ms per DP step (2 "
@@ -2617,15 +2610,14 @@ def multi_device(g, cam, cfg, md_cfg, queries, tcfg, dev):
         e_f = hold_blend_tiles(g, cam, md_cfg)
 
         # ---- the two gloo ranks and the dryrun, started above ----------
-        logs = [pr.communicate(timeout=600)[0] for pr in procs]
-        dry, dry_log = procs[2], logs[2]
+        results = dryrun.wait_ranks(procs, 600)
+        dry_rc, dry_log = results[2]
         print(dry_log.strip())
-        check(dry.returncode == 0 and "ALL OK (2 processes, gloo, cuda)"
-              in dry_log, f"multi-device: the 2-rank dryrun on cuda:0 "
-              f"failed: {dry_log[-3000:]}")
-        check(all(pr.returncode == 0 for pr in procs[:2]),
-              "multi-device: a gloo rank failed: " + " | ".join(
-                  log[-1500:] for log in logs[:2]))
+        check(dry_rc == 0 and "ALL OK (2 processes, gloo, cuda)" in dry_log
+              and all(rc == 0 for rc, _ in results[:2]),
+              "multi-device: the 2-rank dryrun or a gloo rank on cuda:0 "
+              "failed (the dryrun is rank 2 here):\n"
+              + dryrun.rank_tails(results))
         print(f"[multi-device] the 2-rank gloo dryrun and the 2 gloo ranks' "
               f"renders on cuda:0, started with the NCCL checks and the "
               f"blend_tiles check still to run: {time.perf_counter() - t0:.1f}"
@@ -3746,10 +3738,11 @@ if __name__ == "__main__":
         import argparse
 
         ap = argparse.ArgumentParser()
-        for flag in ("--md-rank", "--md-port", "--md-max-per-tile"):
+        for flag in ("--md-rank", "--md-max-per-tile"):
             ap.add_argument(flag, type=int, required=True)
+        ap.add_argument("--md-init", required=True)
         ap.add_argument("--md-out", required=True)
         a = ap.parse_args()
-        md_worker(a.md_rank, a.md_port, a.md_out, a.md_max_per_tile)
+        md_worker(a.md_rank, a.md_init, a.md_out, a.md_max_per_tile)
     else:
         main()

@@ -13,8 +13,9 @@ axis (``runtime.Mesh``). Three parallel axes, composable on an N-D mesh:
 - ``tile``  : one frame's tile grid shards across ranks; the forward gathers
   the tiles' outputs, per-Gaussian gradients are summed over the ranks in
   the backward (tile_shard.py).
-- ``runtime`` : process bring-up (``init_process_group``), meshes of process
-  groups, per-rank data (runtime.py).
+- ``runtime`` : process bring-up (``init_process_group``, a store file for
+  ranks on one host) and shutdown, meshes of process groups, per-rank
+  data (runtime.py); ``dryrun`` starts and waits for ranks on one host.
 
 Submodules are re-exported lazily (PEP 562): ``import
 gs_localization_torch.parallel`` creates no process group and does not

@@ -23,17 +23,24 @@ dryrun's tiny scene:
 
 Each rank prints one OK line, then the launcher prints ``ALL OK``. Ranks
 exit non-zero on a failed check; the launcher exits non-zero if any rank
-did. The counterpart of the JAX package's
-``benchmarks/dryrun_multiprocess.py``.
+did, or if the ranks outlast ``_TIMEOUT_S``, and then prints the end of
+every rank's output. The ranks meet through a store file in a fresh
+temporary directory (``runtime.local_rendezvous``), not a port. The
+counterpart of the JAX package's ``benchmarks/dryrun_multiprocess.py``.
+
+``start_ranks`` and ``wait_ranks`` are the launcher's two halves, for any
+program that starts ranks on this host (the tests, ``chip_smoke.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import socket
 import subprocess
 import sys
+import tempfile
+import time
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -41,7 +48,7 @@ _TIMEOUT_S = 600
 PER_RANK = 2        # cameras (and queries) of each rank's block
 
 
-def worker(rank: int, nproc: int, port: int, device: str) -> None:
+def worker(rank: int, nproc: int, init: str, device: str) -> None:
     import torch
 
     from ..loc.refine import TrackingConfig, refine_poses_batch
@@ -50,8 +57,7 @@ def worker(rank: int, nproc: int, port: int, device: str) -> None:
     from . import dp, runtime
 
     torch.set_num_threads(1)
-    if not runtime.initialize_runtime(f"127.0.0.1:{port}", nproc, rank,
-                                      backend="gloo"):
+    if not runtime.initialize_runtime(init, nproc, rank, backend="gloo"):
         raise RuntimeError("the dryrun needs at least 2 processes")
     dev = runtime.rank_device(device)
 
@@ -100,47 +106,83 @@ def worker(rank: int, nproc: int, port: int, device: str) -> None:
           f"loss {loss:.4f} == single-process {ref_loss:.4f}; {n_global} "
           f"queries refined, all-gathered pose diff {diff:.2e} ok",
           flush=True)
-    torch.distributed.destroy_process_group()
+    runtime.shutdown_runtime()
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def start_ranks(argvs: Sequence[Sequence[str]], log_dir,
+                **popen_kw) -> List[subprocess.Popen]:
+    """One process per argv, its stdout and stderr written to
+    ``log_dir/rank{i}.log``: a file, so that no rank blocks on output that
+    nobody reads while another rank is waited on."""
+    procs = []
+    for i, argv in enumerate(argvs):
+        with open(os.path.join(log_dir, f"rank{i}.log"), "w") as log:
+            procs.append(subprocess.Popen(list(argv), stdout=log,
+                                          stderr=subprocess.STDOUT, text=True,
+                                          **popen_kw))
+        procs[-1].log_path = log.name
+    return procs
 
 
-def launch(nproc: int, device: str) -> int:
-    """Run the dryrun in ``nproc`` ranks; prints their OK lines (or the
-    end of a failed rank's output) and returns 0 when every rank passed.
-    Raises at once for ``device="cuda"`` without a card."""
-    from .. import resolve_device
-
-    resolve_device(device)
-    port = free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", __spec__.name, "--worker", str(i), "--nproc",
-         str(nproc), "--port", str(port), "--device", device],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for i in range(nproc)]
-    rc = 0
+def wait_ranks(procs: Sequence[subprocess.Popen],
+               timeout: float) -> List[Tuple[Optional[int], str]]:
+    """Wait for the processes of ``start_ranks`` up to ``timeout`` seconds.
+    A rank that fails ends the wait, since its peers would wait for it up
+    to the runtime's own timeout: every rank still running is then killed,
+    as it is at the deadline. Returns each rank's exit code (None: killed)
+    and all that it printed."""
+    deadline = time.monotonic() + timeout
     try:
-        for p in procs:
-            out, _ = p.communicate(timeout=_TIMEOUT_S)
-            ok = [ln for ln in out.splitlines()
-                  if ln.startswith(("dryrun_multiprocess:",
-                                    "dryrun_multichip:"))]
-            print("\n".join(ok) if p.returncode == 0 else out[-3000:],
-                  flush=True)
-            rc |= p.returncode
+        while time.monotonic() < deadline:
+            rcs = [p.poll() for p in procs]
+            if None not in rcs or any(rc not in (None, 0) for rc in rcs):
+                break
+            time.sleep(0.05)
     finally:
-        for p in procs:         # a rank left waiting on a failed peer
+        killed = [p.poll() is None for p in procs]
+        for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    if rc == 0:
-        print(f"dryrun_multiprocess: ALL OK ({nproc} processes, gloo, "
-              f"{device})", flush=True)
-    return rc
+    out = []
+    for p, k in zip(procs, killed):
+        with open(p.log_path) as f:
+            out.append((None if k else p.returncode, f.read()))
+    return out
+
+
+def rank_tails(results: Sequence[Tuple[Optional[int], str]],
+               n: int = 3000) -> str:
+    """Every rank's exit code and the last ``n`` characters it printed."""
+    return "\n".join(
+        f"--- rank {i}: " + ("killed (timed out or its peer failed)"
+                             if rc is None else f"exit {rc}")
+        + f" ---\n{out[-n:]}" for i, (rc, out) in enumerate(results))
+
+
+def launch(nproc: int, device: str) -> int:
+    """Run the dryrun in ``nproc`` ranks; prints their OK lines (or every
+    rank's exit code and the end of its output) and returns 0 when every
+    rank passed. Raises at once for ``device="cuda"`` without a card."""
+    from .. import resolve_device
+    from . import runtime
+
+    resolve_device(device)
+    with tempfile.TemporaryDirectory(prefix="gsloc_dryrun_") as tmp:
+        init = runtime.local_rendezvous(tmp)
+        results = wait_ranks(start_ranks(
+            [[sys.executable, "-m", __spec__.name, "--worker", str(i),
+              "--nproc", str(nproc), "--init", init, "--device", device]
+             for i in range(nproc)], tmp), _TIMEOUT_S)
+    if any(rc != 0 for rc, _ in results):
+        print(rank_tails(results), flush=True)
+        return 1
+    for _, out in results:
+        print("\n".join(ln for ln in out.splitlines() if ln.startswith(
+            ("dryrun_multiprocess:", "dryrun_multichip:"))), flush=True)
+    print(f"dryrun_multiprocess: ALL OK ({nproc} processes, gloo, "
+          f"{device})", flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -148,10 +190,11 @@ def main(argv=None) -> int:
     ap.add_argument("--nproc", type=int, default=2)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--worker", type=int, default=None)
-    ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--init", default=None,
+                    help="the world's rendezvous address (a worker's)")
     args = ap.parse_args(argv)
     if args.worker is not None:
-        worker(args.worker, args.nproc, args.port,
+        worker(args.worker, args.nproc, args.init,
                "cuda:0" if args.device == "cuda" else "cpu")
         return 0
     return launch(args.nproc, args.device)

@@ -13,11 +13,20 @@ is N gloo processes. Every rank runs the same program:
     batch = runtime.make_global_batch(local, mesh, "data", device)
     res = shard_queries_refine(mesh, gaussians, *batch)   # every rank: all
     errs = runtime.process_allgather(local_errs)          # host-side merge
+    runtime.shutdown_runtime()            # every rank, before it exits
 
 Environment (read when the arguments are None, the launcher's pattern):
-  GSLOC_COORDINATOR   "host:port" of rank 0 (a ``tcp://`` address)
+  GSLOC_COORDINATOR   "host:port" of rank 0 (a ``tcp://`` address; rank 0
+                      binds that port), or a ``file://`` address that
+                      every rank can open (``local_rendezvous`` for ranks
+                      on one host)
   GSLOC_NUM_PROCESSES world size
   GSLOC_PROCESS_ID    this rank
+
+Ranks on one host meet through a fresh store file
+(``local_rendezvous(tmpdir)``), never through a port picked ahead of
+time: a port that is found free and let go can be taken by any other
+process before rank 0 binds it.
 
 Backends are explicit and never switched on failure: ``nccl`` for ranks
 that each own a card, ``gloo`` on the CPU, and ``gloo`` for ranks that
@@ -31,6 +40,8 @@ from __future__ import annotations
 
 import datetime
 import os
+import uuid
+import weakref
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 _TIMEOUT = datetime.timedelta(minutes=10)
+_MESHES = weakref.WeakSet()     # the live meshes, whose groups shutdown drops
 
 
 def initialize_runtime(
@@ -77,12 +89,38 @@ def initialize_runtime(
     if backend == "nccl":
         torch.cuda.set_device(int(process_id) % torch.cuda.device_count())
     address = coordinator_address
-    if not address.startswith("tcp://"):
+    if not address.startswith(("tcp://", "file://")):
         address = f"tcp://{address}"
     dist.init_process_group(backend, init_method=address,
                             world_size=int(num_processes),
                             rank=int(process_id), timeout=_TIMEOUT)
     return True
+
+
+def local_rendezvous(tmpdir) -> str:
+    """A ``file://`` address for one world whose ranks share this host's
+    file system: a store file of a fresh name in the existing directory
+    ``tmpdir``. The ranks meet in the file, so no port is chosen before
+    the process that binds it runs. Each world needs its own address (a
+    store file left from an earlier world would hang the next one)."""
+    path = os.path.join(os.path.abspath(tmpdir),
+                        f"rendezvous-{uuid.uuid4().hex}")
+    return f"file://{path}"
+
+
+def shutdown_runtime() -> None:
+    """Leave the world (a no-op without a process group): drop the process
+    groups of every live ``Mesh``, whose ``group`` then raises, and destroy
+    all groups. A group still referenced after ``destroy_process_group``
+    keeps gloo's worker threads running until the interpreter exits, and
+    a worker that then drops the last reference to a tensor needs the GIL
+    of an interpreter that is gone: the process aborts after its work is
+    done. Dropped here, the groups join their threads at once."""
+    if not dist.is_initialized():
+        return
+    for mesh in list(_MESHES):
+        mesh._groups = None
+    dist.destroy_process_group()
 
 
 def rank_device(device="cuda") -> torch.device:
@@ -135,9 +173,13 @@ class Mesh:
                 if rank in members:
                     mine = group
             self._groups[name] = mine
+        if dist.is_initialized():
+            _MESHES.add(self)
 
     def group(self, axis: str):
         """This rank's process group along ``axis`` (None: one rank)."""
+        if self._groups is None:
+            raise RuntimeError("this mesh's world was shut down")
         return self._groups[axis]
 
     def index(self, axis: str) -> int:

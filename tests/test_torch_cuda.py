@@ -1000,12 +1000,10 @@ def test_stream_training_is_bit_reproducible(case):
     assert not torch.equal(a.gaussians.xyz, g.xyz)
 
 
-def test_one_rank_nccl_group_matches_unsharded(case):
+def test_one_rank_nccl_group_matches_unsharded(case, tmp_path):
     """A world-size-1 NCCL group on the card: ``dp_train_grads`` over 2
     cameras and ``rasterize_tile_sharded`` against the unsharded port (the
     collectives run; one rank's mean is the mean)."""
-    import socket
-
     import torch.distributed as dist
     from gs_localization_torch.mapping import losses
     from gs_localization_torch.parallel import dp, runtime
@@ -1014,10 +1012,8 @@ def test_one_rank_nccl_group_matches_unsharded(case):
 
     cfg = case["pre"]
     g, cam = _on(case["arrays"], case["device"])
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("nccl",
+                            init_method=runtime.local_rendezvous(tmp_path),
                             world_size=1, rank=0)
     try:
         mesh = runtime.global_mesh(("data",))
@@ -1048,4 +1044,4 @@ def test_one_rank_nccl_group_matches_unsharded(case):
         torch.testing.assert_close(out_s.depth, out_r.depth, atol=1e-4,
                                    rtol=0)
     finally:
-        dist.destroy_process_group()
+        runtime.shutdown_runtime()

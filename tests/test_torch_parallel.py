@@ -21,8 +21,6 @@ case and writes its results. Tolerances:
 """
 
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -38,6 +36,7 @@ from gs_localization_tpu.parallel.tile_shard import (
     rasterize_tile_sharded as j_tile_sharded)
 from gs_localization_tpu.raster import RasterizerConfig as JConfig
 from gs_localization_tpu.raster import rasterize as j_rasterize
+from gs_localization_torch.parallel import dryrun, runtime
 from helpers import make_camera
 import torch_parallel_worker as W
 
@@ -60,44 +59,33 @@ def _grad_close(got, want, name):
                                rtol=GRAD_TOL["rtol"], err_msg=name)
 
 
-def _port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
-    """Both worlds, launched together; -> {world: [rank results], ref}."""
-    out = str(tmp_path_factory.mktemp("parallel"))
+    """Both worlds, launched together, each meeting through its own store
+    file (``runtime.local_rendezvous``); -> {world: (rank results, ref)}.
+    A failed or timed-out rank fails the fixture with every rank's
+    output."""
+    out = tmp_path_factory.mktemp("parallel")
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["OMP_NUM_THREADS"] = "1"
     procs = []
     for world in WORLDS:
-        p = _port()
-        procs += [subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "tests",
-                                          "torch_parallel_worker.py"),
-             "--rank", str(r), "--world", str(world), "--port", str(p),
-             "--out", out], cwd=REPO, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    logs = []
-    try:
-        for proc in procs:
-            log, _ = proc.communicate(timeout=300)
-            logs.append((proc.returncode, log))
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    bad = [log[-3000:] for rc, log in logs if rc != 0]
-    assert not bad, "\n".join(bad)
+        log_dir = out / f"logs{world}"
+        log_dir.mkdir()
+        init = runtime.local_rendezvous(out)
+        procs += dryrun.start_ranks(
+            [[sys.executable, os.path.join(REPO, "tests",
+                                           "torch_parallel_worker.py"),
+              "--rank", str(r), "--world", str(world), "--init", init,
+              "--out", str(out)] for r in range(world)], log_dir, cwd=REPO,
+            env=env)
+    ranks_out = dryrun.wait_ranks(procs, 300)
+    assert all(rc == 0 for rc, _ in ranks_out), dryrun.rank_tails(ranks_out)
     res = {}
     for world in WORLDS:
-        ranks = [dict(np.load(os.path.join(out, f"w{world}_r{r}.npz")))
+        ranks = [dict(np.load(out / f"w{world}_r{r}.npz"))
                  for r in range(world)]
-        ref = dict(np.load(os.path.join(out, f"w{world}_ref.npz")))
+        ref = dict(np.load(out / f"w{world}_ref.npz"))
         res[world] = (ranks, ref)
     return res
 

@@ -32,7 +32,7 @@ from gs_localization_torch.core import sh as sh_lib
 from gs_localization_torch.core.camera import rotmat_to_quat
 from gs_localization_torch.data.colmap import (
     ColmapCamera, ColmapImage, write_colmap_model_text)
-from gs_localization_torch.data.ply import load_gaussian_ply
+from gs_localization_torch.data.ply import load_gaussian_ply, save_gaussian_ply
 from gs_localization_torch.pipelines import localize as tloc
 from gs_localization_torch.pipelines import presets as tpresets
 from gs_localization_torch.pipelines import run_scene as trun
@@ -107,10 +107,12 @@ def _write_scene(root, rng, width, height):
 def layout(tmp_path_factory):
     """The 7-Scenes layout of ``_write_scene`` at 64x48, the sfm stage's
     two files in ``output_tpu`` (the world's means and colours, the test
-    poses moved by a few cm), and ``sparse/0`` for the cambridge preset."""
+    poses moved by a few cm), ``sparse/0`` for the cambridge preset, and
+    the world itself as a map, ``world.ply``."""
     root = tmp_path_factory.mktemp("seven") / "chess"
     rng = np.random.default_rng(12)
     world, cams, names = _write_scene(root, rng, W, H)
+    save_gaussian_ply(str(root / "world.ply"), world)
     shutil.copytree(root / "sparse_dslam" / "0", root / "sparse" / "0")
     out = root / "output_tpu"
     out.mkdir()
@@ -284,6 +286,45 @@ def test_stage_localize_hands_over_what_jax_does(layout, monkeypatch,
                                    atol=1e-6)
     back = read_pose_results(str(root / "output_tpu" / "results.txt"))
     assert list(back) == names[N_TRAIN:]
+
+
+@pytest.mark.slow
+def test_stage_localize_from_one_map_matches_jax(layout, monkeypatch,
+                                                 tmp_path):
+    """Both runners' localize stage from one map (the layout's world as a
+    PLY) and the same init poses, seven_scenes preset: each query's refined
+    pose within 1e-5 of JAX's (quaternion, translation in m), the metrics
+    within rtol 1e-3, and a pose that moves by more than 5 mm. Slow: JAX's
+    runner pads the batch to 8 queries and blends with jnp on the CPU
+    (about 60 s on one worker)."""
+    root, names = layout
+    monkeypatch.setattr(jprof, "enable_persistent_compile_cache",
+                        lambda *a, **k: None)
+    argv = ["--scene", str(root), "--stage", "localize", "--map",
+            str(root / "world.ply"), "--max-pairs", "16384"]
+    for pkg in ("jax", "port"):
+        (tmp_path / pkg).mkdir()
+        shutil.copy(root / "output_tpu" / "results_dense.txt",
+                    tmp_path / pkg)
+    jrun.main(argv + ["--out", str(tmp_path / "jax")])
+    trun.main(argv + ["--out", str(tmp_path / "port"), "--device", "cpu"])
+    init = read_pose_results(str(root / "output_tpu" / "results_dense.txt"))
+    got, want = (read_pose_results(str(tmp_path / pkg / "results.txt"))
+                 for pkg in ("port", "jax"))
+    assert list(got) == list(want) == names[N_TRAIN:]
+    for name in names[N_TRAIN:]:
+        for k in range(2):
+            np.testing.assert_allclose(got[name][k], want[name][k],
+                                       atol=1e-5, err_msg=name)
+    moved = max(float(np.abs(got[n][1] - init[n][1]).max()) for n in got)
+    assert moved > 5e-3, moved
+    with open(tmp_path / "port" / "metrics.json") as f, \
+            open(tmp_path / "jax" / "metrics.json") as g:
+        met_t, met_j = json.load(f), json.load(g)
+    assert sorted(met_t) == sorted(met_j)
+    for key, val in met_j.items():
+        np.testing.assert_allclose(met_t[key], val, rtol=1e-3, atol=1e-6,
+                                   err_msg=key)
 
 
 @pytest.mark.parametrize("extractor", ["harris", "sift"])

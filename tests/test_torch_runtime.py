@@ -6,10 +6,11 @@ rank whose collectives are the identity); a gloo world of 2 ranks runs the
 pieces that need one (the mesh's sub-groups, the per-rank slices and the
 global batch's round trip); and the 2-process dryrun
 (``python -m gs_localization_torch.parallel.dryrun``) runs at its tiny size
-(about 10 s)."""
+(about 10 s). Every world meets through a store file of its own
+(``runtime.local_rendezvous``), never through a port picked ahead of time,
+and a failed or timed-out world reports every rank's output."""
 
 import os
-import socket
 import subprocess
 import sys
 
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from gs_localization_torch.parallel import runtime
+from gs_localization_torch.parallel import dryrun, runtime
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV_KEYS = ("GSLOC_COORDINATOR", "GSLOC_NUM_PROCESSES", "GSLOC_PROCESS_ID")
@@ -115,7 +116,7 @@ import numpy as np
 import torch
 from gs_localization_torch.parallel import runtime
 rank = int(sys.argv[1])
-assert runtime.initialize_runtime(f"127.0.0.1:{sys.argv[2]}", 2, rank)
+assert runtime.initialize_runtime(sys.argv[2], 2, rank)
 assert torch.distributed.get_backend() == "gloo"
 mesh = runtime.global_mesh(("data", "gauss"), (1, 2))
 assert mesh.index("gauss") == rank and mesh.index("data") == 0
@@ -139,33 +140,93 @@ y = runtime.gather_rows(x, mesh, "gauss")
 assert y.tolist() == [0.0, 0.0, 1.0, 1.0]
 (y * torch.arange(4.0)).sum().backward()
 assert x.grad.tolist() == ([0.0, 1.0] if rank == 0 else [2.0, 3.0])
-torch.distributed.destroy_process_group()
+runtime.shutdown_runtime()
+try:
+    mesh.group("gauss")
+    raise SystemExit("a mesh of a world that was shut down answered")
+except RuntimeError:
+    pass
+assert not torch.distributed.is_initialized()
 print("world ok")
 """
 
 
-def test_two_rank_world():
+def _run_worlds(tmp_path, n_worlds, timeout):
+    """``n_worlds`` 2-rank worlds of _WORLD_CODE, all started at once,
+    each with its own rendezvous in ``tmp_path``; -> every rank's (exit
+    code, output), failing with all of them unless each printed "world
+    ok"."""
+    procs = []
+    for w in range(n_worlds):
+        log_dir = tmp_path / f"world{w}"
+        log_dir.mkdir()
+        init = runtime.local_rendezvous(tmp_path)
+        procs += dryrun.start_ranks(
+            [[sys.executable, "-c", _WORLD_CODE, str(r), init]
+             for r in range(2)], log_dir, cwd=REPO, env=_env())
+    res = dryrun.wait_ranks(procs, timeout)
+    assert all(rc == 0 and "world ok" in out for rc, out in res), \
+        dryrun.rank_tails(res)
+    return res
+
+
+def test_two_rank_world(tmp_path):
     """A gloo world of 2: the mesh's sub-groups and coordinates, the
     per-rank slices, make_global_batch's round trip through
     process_allgather and its check of uneven blocks, a summed all-reduce,
     and gather_rows' backward taking the rank's own rows."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    procs = [subprocess.Popen([sys.executable, "-c", _WORLD_CODE, str(r),
-                               str(port)], cwd=REPO, env=_env(),
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
-    try:
-        outs = [p.communicate(timeout=120)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0 and "world ok" in out, out[-2000:]
+    _run_worlds(tmp_path, 1, 120)
+
+
+def test_worlds_started_together_each_meet_their_own(tmp_path):
+    """Two 2-rank worlds started at the same instant, the situation in
+    which ports picked ahead of time raced: each world's rendezvous is
+    its own file, and both worlds pass."""
+    assert len(_run_worlds(tmp_path, 2, 120)) == 4
+
+
+def test_local_rendezvous_and_coordinator_addresses(tmp_path, monkeypatch):
+    """local_rendezvous gives a fresh file:// address in the directory on
+    each call; initialize_runtime hands a file:// address to
+    init_process_group unchanged and makes a host:port one tcp://."""
+    a, b = (runtime.local_rendezvous(tmp_path) for _ in range(2))
+    assert a != b and a.startswith(f"file://{tmp_path}/")
+    assert not os.path.exists(a[len("file://"):])
+    seen = []
+    monkeypatch.setattr(runtime.dist, "init_process_group",
+                        lambda backend, init_method, **kw: seen.append(
+                            (backend, init_method, kw["world_size"],
+                             kw["rank"])))
+    for address in (a, "tcp://10.0.0.1:29500", "10.0.0.1:29500"):
+        assert runtime.initialize_runtime(address, 2, 1, backend="gloo")
+    assert seen == [("gloo", a, 2, 1),
+                    ("gloo", "tcp://10.0.0.1:29500", 2, 1),
+                    ("gloo", "tcp://10.0.0.1:29500", 2, 1)]
+
+
+def test_a_failed_rank_reports_every_rank(tmp_path):
+    """wait_ranks ends the wait when a rank fails, kills the peer that
+    would wait for it, and returns what each printed; rank_tails names
+    both; at the deadline every rank still running is killed."""
+    flag = tmp_path / "printed"
+    code = ("import os, sys, time\nflag = sys.argv[2]\n"
+            "if sys.argv[1] == '0':\n    print('rank 0 waits', flush=True)\n"
+            "    open(flag, 'w').close()\n    time.sleep(60)\n"
+            "while not os.path.exists(flag):\n    time.sleep(0.01)\n"
+            "print('rank 1 fails', flush=True)\nsys.exit(3)\n")
+    procs = dryrun.start_ranks([[sys.executable, "-c", code, str(r),
+                                 str(flag)] for r in range(2)], tmp_path)
+    res = dryrun.wait_ranks(procs, 50)
+    assert res == [(None, "rank 0 waits\n"), (3, "rank 1 fails\n")]
+    tails = dryrun.rank_tails(res)
+    assert "rank 0: killed" in tails and "rank 1: exit 3" in tails
+    assert all(p.poll() is not None for p in procs)
+    (tmp_path / "deadline").mkdir()
+    slow = dryrun.start_ranks([[sys.executable, "-c", code, "0",
+                                str(tmp_path / "again")]],
+                              tmp_path / "deadline")
+    assert dryrun.wait_ranks(slow, 1.0)[0][0] is None
+    assert slow[0].poll() is not None
 
 
 def test_two_process_dryrun():

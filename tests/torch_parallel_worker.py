@@ -1,6 +1,6 @@
 """One rank of a gloo world for tests/test_torch_parallel.py (no JAX).
 
-    python tests/torch_parallel_worker.py --rank R --world N --port P --out DIR
+    python tests/torch_parallel_worker.py --rank R --world N --init ADDR --out DIR
 
 Runs every case of the port's sharded functions on the CPU at this world
 size, with one intra-op thread, and writes this rank's results to
@@ -75,7 +75,7 @@ def focal(case: str) -> float:
     return w / (2.0 * np.tan(0.5))
 
 
-def run(rank: int, world: int, port: int, out: str) -> None:
+def run(rank: int, world: int, init: str, out: str) -> None:
     sys.path.insert(0, REPO)
     import torch
 
@@ -89,8 +89,7 @@ def run(rank: int, world: int, port: int, out: str) -> None:
         rasterize_tile_sharded)
     from gs_localization_torch.raster import RasterizerConfig, rasterize
 
-    assert runtime.initialize_runtime(f"127.0.0.1:{port}", world, rank,
-                                      backend="gloo")
+    assert runtime.initialize_runtime(init, world, rank, backend="gloo")
     cfg = RasterizerConfig(**PORT_RASTER)
     res, ref = {}, {}
 
@@ -216,14 +215,14 @@ def run(rank: int, world: int, port: int, out: str) -> None:
     np.savez(os.path.join(out, f"w{world}_r{rank}.npz"), **res)
     if rank == 0:
         np.savez(os.path.join(out, f"w{world}_ref.npz"), **ref)
-    torch.distributed.destroy_process_group()
+    runtime.shutdown_runtime()
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
-    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--init", required=True)
     ap.add_argument("--out", required=True)
     a = ap.parse_args()
-    run(a.rank, a.world, a.port, a.out)
+    run(a.rank, a.world, a.init, a.out)
