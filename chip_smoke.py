@@ -41,7 +41,7 @@
 9. times each kernel (the median of 25 single calls, the kernels line's
    ``ms``, and the device time per call over 25 calls back to back, its
    ``device_ms``; CUDA events) beside its plain
-   version (median of 25 single calls) and its bound (this run's walked
+   version (median of 5 single calls) and its bound (this run's walked
    work: its bytes over the HBM peak, its instructions over the H100's
    fp32 and special-function issue rates): K1/K2 at the bench shapes,
    K3/K4 at the training windows (and, beside K1/K2, at the bench
@@ -87,13 +87,19 @@
    one query by PnP), train and localize follow; the launch counts of the
    call are exact (K1 = steps + held-out renders + localize iterations,
    K2 = steps + localize iterations, no K3/K4) and metrics.json is finite;
+   from the PLY the card's train stage wrote and the card's
+   ``results_dense.txt``, the query whose error rose the most over its
+   init is localized again on the CPU (``--stage localize --device cpu``,
+   the plain versions): its pose within 1 mm / 0.1 deg of the card's and
+   its iterations within ``LOC_ITERS_APART`` of the card's;
    the sfm stage's wall time split into extraction, matching,
    triangulation and PnP; the sfm stage again on the CPU into another
    ``--out``, held against the card (keypoints, points, methods, init
    poses); Harris and SIFT ms per 640x480 image, SIFT card vs CPU on one
    view; ``incremental_mapping`` of the synthetic scene of
-   ``tests/test_incremental_sfm.py`` card vs CPU; ms per
-   ``bundle_adjust_np`` call;
+   ``tests/test_incremental_sfm.py`` card vs CPU (its bundle
+   adjustments at ``MAP_BA_ITERS`` / ``MAP_FINAL_BA_ITERS`` LM steps); ms
+   per ``bundle_adjust_np`` call of ``BA_TIMED_ITERS`` LM steps;
 15. the learned front end: random-weight checkpoints from a seed at the
    official shapes, names and formats (``superpoint_v1.pth``,
    ``superglue_outdoor.pth`` with its residual branches at 0 and a sharp
@@ -105,7 +111,7 @@
    3, SuperGlue on two 1,024-keypoint sets at sinkhorn 5 and 50, NetVLAD
    at 640x480, DPT_Hybrid's and MiDaS's ``estimate_depth`` at 480x640) and
    its median ms per call; one ``run_scene.main`` call ``--stage all
-   --iterations 100 --weights-dir`` on a fresh layout of step 11's views:
+   --iterations 50 --weights-dir`` on a fresh layout of step 11's views:
    every "weights: ... enabled" line, an init pose and a method for every
    test image, the few-shot branch with one DPT call per pseudo step, the
    exact K1/K2 launches (K1 = steps + 2 x pseudo steps + held-out renders
@@ -131,7 +137,7 @@
    and again on the CPU (points within 2 %, the same methods, init poses
    within 5 cm / 1 deg); the sparse front end's ``results_dense.txt`` and
    ``sfm_points.npz`` as the sfm stage writes them, then ``run_scene
-   --stage train --iterations 100`` from its points and ``--stage
+   --stage train --iterations 50`` from its points and ``--stage
    localize`` from both front ends' initial poses, with the exact K1/K2
    launches of the three runs (K1 = steps + held-out renders + localize
    iterations, K2 = steps + localize iterations, no K3/K4) and finite
@@ -193,6 +199,9 @@ CHUNK = 256
 N_QUERIES = 4
 N_ITERS = 50
 N_TIMED = 25
+# single calls of each plain version in the timing phase (40-450 ms each on
+# the card and host-bound: 5 give their median, in less of the script's time)
+N_PLAIN_TIMED = 5
 N_VIEWS, N_TEST_VIEWS = 10, 2
 N_TRAIN = 300
 N_PAIR_QUERIES = 2
@@ -202,12 +211,28 @@ SCENE_ITERS = 300
 # few-shot training: a pseudo view every FS_INTERVAL iterations strictly
 # inside FS_WINDOW, 14 of the N_TRAIN iterations
 FS_INTERVAL, FS_WINDOW = 20, (10, 290)
-# the learned front end's --stage all run: its train iterations
-LEARNED_ITERS = 100
+# the learned front end's --stage all run: its train iterations (50 hold 2
+# pseudo steps, each with its DPT call)
+LEARNED_ITERS = 50
 # the hloc confs' sfm runs: the pair window and retrieval depth of
-# SfmInitConfig (2 and 2 hold the CPU rerun's LoFTR and LightGlue calls
-# near 30 pairs each), and the train iterations
-HLOC_WINDOW, HLOC_RETRIEVAL, HLOC_ITERS = 2, 2, 100
+# SfmInitConfig (1 and 1 hold the CPU rerun's LightGlue and LoFTR calls to
+# 10 and 13 mapping pairs and one pair a query, and still place all 4
+# queries by PnP), and the train iterations
+HLOC_WINDOW, HLOC_RETRIEVAL, HLOC_ITERS = 1, 1, 50
+# a localize on the card and on the CPU may stop apart by this many
+# iterations: the stop tests the norm of Adam's step against the preset's
+# convergence (1e-4), a value rounded differently on each device, and each
+# step past it moves the pose by less than 1e-4 m and rad, so 2 such steps
+# stay well inside the 1 mm / 0.1 deg gate on the poses
+LOC_ITERS_APART = 2
+# the all-stages phase's incremental mapper (card vs CPU): LM steps of its
+# periodic and final bundle adjustments (the mapper's defaults are 10 and
+# 25); every image registers, from the same initial pair, to the defaults'
+# final cost (602.5 on the CPU) in half their time
+MAP_BA_ITERS, MAP_FINAL_BA_ITERS = 5, 12
+# LM steps of the one timed bundle_adjust_np call on each device (the
+# solver's default is 15); the time per LM step is printed beside it
+BA_TIMED_ITERS = 5
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_FP32 = 67e12     # FLOP/s on the CUDA cores, a fused multiply-add as 2
@@ -1109,7 +1134,8 @@ def all_stages(g, cam, cfg, dev) -> dict:
     counts."""
     import torch
     import gs_localization_torch as gsl
-    from gs_localization_torch.core.camera import quat_to_rotmat
+    from gs_localization_torch.core.camera import (quat_to_rotmat,
+                                                   rotmat_to_quat)
     from gs_localization_torch.data.scene import load_image
     from gs_localization_torch.pipelines import localize as ploc
     from gs_localization_torch.pipelines import run_scene
@@ -1117,7 +1143,8 @@ def all_stages(g, cam, cfg, dev) -> dict:
     from gs_localization_torch.sfm.features import (extract_harris_features,
                                                     rgb_to_gray)
     from gs_localization_torch.sfm.incremental import incremental_mapping
-    from gs_localization_torch.sfm.io import read_pose_results
+    from gs_localization_torch.sfm.io import (read_pose_results,
+                                              write_pose_results)
     from gs_localization_torch.sfm.sift import extract_sift
     from gs_localization_torch.sfm.evaluate import pose_errors
 
@@ -1136,12 +1163,13 @@ def all_stages(g, cam, cfg, dev) -> dict:
         test_names = list(true_w2c)[N_SCENE_TRAIN:]
         out = root / "output_tpu"
         check(not out.exists(), "the layout holds sfm files")
-        # each localized query's iterations (RefineResult.num_iters)
-        loc_iters = []
+        # each refine_poses_batch call's iterations per query
+        # (RefineResult.num_iters)
+        loc_calls = []
 
         def counted(*a, **kw):
             res = batch(*a, **kw)
-            loc_iters.extend(res.num_iters)
+            loc_calls.append(list(res.num_iters))
             return res
 
         ploc.refine_poses_batch = counted
@@ -1199,7 +1227,7 @@ def all_stages(g, cam, cfg, dev) -> dict:
         # exact launch counts: train steps and held-out renders, then one
         # forward and one backward per localize iteration; no K3/K4
         n_held = min(8, N_SCENE_TEST)
-        n_loc = int(sum(loc_iters))
+        n_loc = int(sum(map(sum, loc_calls)))
         want = {"stream_fwd": SCENE_ITERS + n_held + n_loc,
                 "stream_bwd": SCENE_ITERS + n_loc, "pregathered_fwd": 0,
                 "pregathered_bwd": 0}
@@ -1226,6 +1254,60 @@ def all_stages(g, cam, cfg, dev) -> dict:
               f"{on_disk['median_trans_m'] * 100:.3f} cm / "
               f"{on_disk['median_rot_deg']:.4f} deg ({smi}); metrics.json "
               f"{on_disk}")
+
+        # the card's localize held against the CPU's (the plain versions)
+        # from the card's PLY and init, for the query whose error rose the
+        # most over its init: the same preset, raster config and code
+        res_g = done["localize"][0]
+        check(len(loc_calls[-1]) == len(res_g), "one localize batch expected")
+        iters_g = dict(zip(res_g, loc_calls[-1]))
+
+        def err_of(name, w):
+            gt_w = true_w2c[name]
+            return pose_errors(w[:3, :3], w[:3, 3], gt_w[:3, :3],
+                               gt_w[:3, 3])
+
+        worst = max(res_g, key=lambda n: err_of(n, res_g[n])[0]
+                    - init_err[n][0])
+        out_l = scene_dir / "out_cpu_localize"
+        out_l.mkdir()
+        write_pose_results(str(out_l / "results_dense.txt"), {
+            worst: read_pose_results(str(out / "results_dense.txt"))[worst]})
+        ply = out / "gs_map" / f"iteration_{SCENE_ITERS}" / "point_cloud.ply"
+        loc_calls.clear()
+        ploc.refine_poses_batch = counted
+        t0 = time.perf_counter()
+        done_l = run_scene.main(["--scene", str(root), "--preset",
+                                 "seven_scenes", "--stage", "localize",
+                                 "--device", "cpu", "--out", str(out_l),
+                                 "--map", str(ply)])
+        cpu_s = time.perf_counter() - t0
+        ploc.refine_poses_batch = batch
+        w_g, w_c = res_g[worst], done_l["localize"][0][worst]
+        it_g, it_c = iters_g[worst], loc_calls[-1][0]
+        (e_gt, e_gr), (e_ct, e_cr) = err_of(worst, w_g), err_of(worst, w_c)
+        d_t, d_r = pose_errors(w_c[:3, :3], w_c[:3, 3], w_g[:3, :3],
+                               w_g[:3, 3])
+
+        def pose_str(w):
+            q = rotmat_to_quat(w[:3, :3].astype(np.float64))
+            return (f"q {np.array2string(q, precision=7)} t "
+                    f"{np.array2string(w[:3, 3], precision=7)}")
+
+        e0t, e0r = init_err[worst]
+        print(f"[all] localize card vs CPU from the card's map, {worst} "
+              f"(init {e0t * 100:.3f} cm / {e0r:.4f} deg; the largest rise, "
+              f"{(e_gt - e0t) * 100:.3f} cm): card {pose_str(w_g)}, "
+              f"{e_gt * 100:.4f} cm / "
+              f"{e_gr:.5f} deg, {it_g} iterations; CPU {pose_str(w_c)}, "
+              f"{e_ct * 100:.4f} cm / {e_cr:.5f} deg, {it_c} iterations; "
+              f"apart {d_t * 1e3:.4f} mm / {d_r:.5f} deg; CPU {cpu_s:.1f} s "
+              f"on {torch.get_num_threads()} threads ({smi})")
+        check(d_t < 1e-3 and d_r < 0.1,
+              f"the CPU's localize of {worst} ends {d_t * 1e3:.4f} mm / "
+              f"{d_r:.5f} deg from the card's (gate 1 mm / 0.1 deg)")
+        check(abs(it_g - it_c) <= LOC_ITERS_APART,
+              f"{worst}: {it_g} iterations on the card, {it_c} on the CPU")
 
         # the sfm stage alone on the CPU, on the same files
         tee_c = Tee(sys.stdout)
@@ -1293,14 +1375,17 @@ def all_stages(g, cam, cfg, dev) -> dict:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(tee_m):
-                recs.append(incremental_mapping(kps, matches, K, seed=2,
-                                                verbose=True, device=d))
+                recs.append(incremental_mapping(
+                    kps, matches, K, seed=2, verbose=True, device=d,
+                    ba_iters=MAP_BA_ITERS, final_ba_iters=MAP_FINAL_BA_ITERS))
             torch.cuda.synchronize()
             map_s.append(time.perf_counter() - t0)
             costs.append(float(re.findall(r"BA over .* -> ([\d.]+)",
                                           tee_m.text())[-1]))
         (rg, rc), (cg, cc) = recs, costs
-        print(f"[all] incremental_mapping card vs CPU: init pair "
+        print(f"[all] incremental_mapping card vs CPU (bundle adjustments "
+              f"of {MAP_BA_ITERS} and finally {MAP_FINAL_BA_ITERS} LM steps):"
+              f" init pair "
               f"{rg.init_pair} / {rc.init_pair}, registered "
               f"{int(rg.registered.sum())} / {int(rc.registered.sum())}, "
               f"final BA cost {cg} / {cc}; wall {map_s[0]:.3f} / "
@@ -1324,12 +1409,14 @@ def all_stages(g, cam, cfg, dev) -> dict:
         ba_ms = []
         for d in (dev, cpu):
             t0 = time.perf_counter()
-            bundle_adjust_np(*ba_args, device=d)
+            bundle_adjust_np(*ba_args, device=d, iters=BA_TIMED_ITERS)
             ba_ms.append((time.perf_counter() - t0) * 1e3)
         print(f"[all] bundle_adjust_np: card {ba_ms[0]:.1f} ms, CPU "
-              f"{ba_ms[1]:.1f} ms per call (15 LM steps, 40 CG iterations "
-              f"each; 5 cameras, {n_obs} points, {len(cam_idx)} "
-              f"observations; one call each; {smi})")
+              f"{ba_ms[1]:.1f} ms per call of {BA_TIMED_ITERS} LM steps, 40 "
+              f"CG iterations each ({ba_ms[0] / BA_TIMED_ITERS:.1f} / "
+              f"{ba_ms[1] / BA_TIMED_ITERS:.1f} ms per LM step; 5 cameras, "
+              f"{n_obs} points, {len(cam_idx)} observations; one call each; "
+              f"{smi})")
         return launches
     finally:
         ploc.refine_poses_batch = batch
@@ -3594,14 +3681,14 @@ def main() -> None:
                 CHUNK),
         }
         tk = {name: (device_ms(fn), time_ms(fn)) for name, fn in calls.items()}
-        k1p_ms = time_ms(lambda: sb.stream_blend_fwd_plain(*args, grid_x, 16,
-                                                           CHUNK))
+        k1p_ms = time_ms(lambda: sb.stream_blend_fwd_plain(
+            *args, grid_x, 16, CHUNK), N_PLAIN_TIMED)
         k2p_ms = time_ms(lambda: sb.stream_blend_bwd_plain(
-            *args, gacc, glogt, grid_x, 16, CHUNK))
+            *args, gacc, glogt, grid_x, 16, CHUNK), N_PLAIN_TIMED)
         k3p_ms = time_ms(lambda: pb.pregathered_blend_fwd_plain(
-            *pargs, grid_x, 16, CHUNK))
+            *pargs, grid_x, 16, CHUNK), N_PLAIN_TIMED)
         k4p_ms = time_ms(lambda: pb.pregathered_blend_bwd_plain(
-            *pargs, gacc_t, glogt_t, grid_x, 16, CHUNK))
+            *pargs, gacc_t, glogt_t, grid_x, 16, CHUNK), N_PLAIN_TIMED)
         work12 = walked_work(stream_t, pack, fwd12[2], grid_x)
         work34b = pregathered_work(*bargs, fwd3[2], grid_x)
         work34 = pregathered_work(*pargs, fwd_t[2], grid_x)
