@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count_wait
+
 _SMALL = 1e-5
 
 
@@ -76,6 +78,7 @@ def se3_exp(tau: torch.Tensor) -> torch.Tensor:
     R = so3_exp(theta)
     t = torch.einsum("...ij,...j->...i", so3_left_jacobian(theta), rho)
     top = torch.cat([R, t[..., :, None]], dim=-1)
+    count_wait("se3_row", tau.device)
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=tau.dtype,
                           device=tau.device).expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)

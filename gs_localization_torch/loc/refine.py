@@ -5,8 +5,13 @@ trans_delta, exposure_a, exposure_b]; each step renders, computes the
 masked tracking loss, backprops to the SE(3) tangent, steps, then retracts
 w2c <- exp(tau) @ w2c and re-zeros tau; stop when ||tau_update|| < 1e-4.
 
-The loop is a Python loop (one host sync per iteration for the convergence
-test); queries are refined one after another.
+The loop is a Python loop (one host read per iteration for the convergence
+test); queries are refined one after another. Each refinement records the
+span ``refine/pose`` and, an iteration, ``refine/rebin`` (when it rebins),
+``refine/render`` (render and loss), ``refine/backward``, ``refine/step``
+(Adam and the retraction) and ``refine/converge`` (the read), with the
+counters ``refine_iters``, ``rebins`` and ``host_sync/converge``
+(``utils/profiling.py``).
 
 The tracking loss: exposure compensation exp(a)*I + b, pixel mask =
 grad_mask (x keypoint mask upstream), opacity mask alpha > 0.99, RGBD adds
@@ -24,6 +29,7 @@ from ..core import se3
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams
 from ..raster.rasterize import RasterizerConfig, compute_bins, rasterize
+from ..utils.profiling import count, host_read, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,31 +146,42 @@ def refine_pose(
     loss = zeros(())
     bins, ovf = None, None
     it = 0
-    while it < cfg.num_iters:
-        if bins is None or cfg.rebin_every <= 1 or it % cfg.rebin_every == 0:
-            bins = make_bins(camera.replace(w2c=w2c))
-            ovf = bins_overflow(bins) if ovf is None \
-                else ovf | bins_overflow(bins)
-        tau = zeros(6).requires_grad_()
-        ab_var = ab.clone().requires_grad_()
-        color, depth, alpha = render_at(
-            camera.replace(w2c=w2c).with_delta(tau), bins)
-        loss = tracking_loss(color, depth, alpha, ab_var, gt_image,
-                             grad_mask, cfg, gt_depth=gt_depth)
-        g_tau, g_ab = torch.autograd.grad(loss, (tau, ab_var))
-        t = float(it + 1)
-        with torch.no_grad():
-            upd6, m6, v6 = adam_update(g_tau, m6, v6, t)
-            upd2, m2, v2 = adam_update(g_ab, m2, v2, t)
-            # retraction: fold the updated tangent into the pose
-            w2c = se3.apply_delta(upd6, w2c)
-            ab = ab + upd2
-        it += 1
-        if cfg.convergence > 0 and \
-                float(torch.linalg.norm(upd6)) < cfg.convergence:
-            break
-    if ovf is None:                      # no iteration ran
-        ovf = bins_overflow(make_bins(camera))
+    with span("refine/pose"):
+        while it < cfg.num_iters:
+            if bins is None or cfg.rebin_every <= 1 \
+                    or it % cfg.rebin_every == 0:
+                with span("refine/rebin"):
+                    count("rebins")
+                    bins = make_bins(camera.replace(w2c=w2c))
+                    ovf = bins_overflow(bins) if ovf is None \
+                        else ovf | bins_overflow(bins)
+            with span("refine/render"):
+                tau = zeros(6).requires_grad_()
+                ab_var = ab.clone().requires_grad_()
+                color, depth, alpha = render_at(
+                    camera.replace(w2c=w2c).with_delta(tau), bins)
+                loss = tracking_loss(color, depth, alpha, ab_var, gt_image,
+                                     grad_mask, cfg, gt_depth=gt_depth)
+            with span("refine/backward"):
+                g_tau, g_ab = torch.autograd.grad(loss, (tau, ab_var))
+            with span("refine/step"):
+                t = float(it + 1)
+                with torch.no_grad():
+                    upd6, m6, v6 = adam_update(g_tau, m6, v6, t)
+                    upd2, m2, v2 = adam_update(g_ab, m2, v2, t)
+                    # retraction: fold the updated tangent into the pose
+                    w2c = se3.apply_delta(upd6, w2c)
+                    ab = ab + upd2
+            it += 1
+            count("refine_iters")
+            if cfg.convergence > 0:
+                with span("refine/converge"):
+                    done = host_read("converge", torch.linalg.norm(upd6)) \
+                        < cfg.convergence
+                if done:
+                    break
+        if ovf is None:                      # no iteration ran
+            ovf = bins_overflow(make_bins(camera))
     return RefineResult(w2c=w2c, exposure_ab=ab, num_iters=it,
                         final_loss=loss.detach(), overflow=ovf)
 

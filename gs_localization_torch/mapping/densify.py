@@ -22,6 +22,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from ..core.gaussians import GaussianParams, inverse_sigmoid, pad_rows
+from ..utils.profiling import count_wait
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +54,7 @@ def update_stats(
     width: int,
     height: int,
 ) -> DensifyState:
+    count_wait("densify_scale", means2d_grad_pix.device)
     scale = torch.tensor([0.5 * width, 0.5 * height], dtype=torch.float32,
                          device=means2d_grad_pix.device)
     norm = torch.linalg.vector_norm(means2d_grad_pix * scale, dim=-1)
@@ -158,6 +160,8 @@ def densify_and_prune(
     free_rank = torch.cumsum(free.to(torch.int32), 0) - 1
     num_free = torch.sum(free.to(torch.int32))
     slot_of_rank = torch.full((n_new,), cap, dtype=torch.int64, device=dev)
+    # two mask indices, nonzero, and below two writes of a host scalar
+    count_wait("densify_select", dev, 5)
     slot_of_rank[free_rank[free].long()] = torch.arange(cap, device=dev)[free]
     fits = all_mask & (sel_rank < num_free)
     sel = torch.nonzero(fits, as_tuple=True)[0]

@@ -26,6 +26,7 @@ from .. import resolve_device
 from ..core.camera import Camera
 from ..core.gaussians import FIELDS, GaussianParams, pad_rows
 from ..raster.rasterize import RasterizerConfig, rasterize
+from ..utils.profiling import count_wait, span
 from . import losses
 from .densify import DensifyState, update_stats
 
@@ -74,6 +75,7 @@ def _expon_lr(step: torch.Tensor, lr_init: float, lr_final: float,
               max_steps: int) -> torch.Tensor:
     """exp(log(lr_init) (1 - t) + log(lr_final) t), t = clip(step / max)."""
     f32 = dict(dtype=torch.float32, device=step.device)
+    count_wait("lr_const", step.device, 2)
     t = torch.clamp(step.to(torch.float32) / max_steps, 0.0, 1.0)
     return torch.exp(torch.log(torch.tensor(lr_init, **f32)) * (1 - t)
                      + torch.log(torch.tensor(lr_final, **f32)) * t)
@@ -99,6 +101,7 @@ def adam_step(cfg: MapTrainConfig, name: str, param: torch.Tensor,
     nu = (1 - _B2) * (grad * grad) + _B2 * m.nu
     count_inc = m.count + 1
     c = count_inc.to(torch.float32)
+    count_wait("adam_const", c.device, 2)
     bc1 = 1 - torch.pow(torch.tensor(_B1, dtype=torch.float32,
                                      device=c.device), c)
     bc2 = 1 - torch.pow(torch.tensor(_B2, dtype=torch.float32,
@@ -220,7 +223,10 @@ def train_step(
     pseudo_view_depth: Optional[torch.Tensor] = None,
 ):
     """One optimization step -> (new state, aux dict of tensors). No host
-    sync: the flags in ``aux`` stay on the device.
+    read: the flags in ``aux`` stay on the device. Spans ``train/render``
+    (binning inside as ``render/binning``), ``train/loss``,
+    ``train/backward`` and ``train/adam`` (the update and the densify
+    statistics; ``utils/profiling.py``).
 
     ``pseudo_camera``/``pseudo_view_depth`` add the few-shot pseudo-view
     term: the pseudo camera is rendered in the same graph (the step's
@@ -230,24 +236,30 @@ def train_step(
     main view's loss, as in the JAX step). The densify statistics come from
     the main view only."""
     g0 = state.gaussians
-    bg = (torch.rand(3, generator=state.generator, device=g0.device)
-          if cfg.random_background else None)
-    params, offset = _leaves(g0)
-    g = g0.replace(**params)
-    out = rasterize(g, camera, raster_cfg, bg=bg, means2d_offset=offset)
-    loss, aux = losses.training_loss(
-        out.color, gt_image, depth=out.depth, gt_depth=gt_depth,
-        pseudo_depth=pseudo_depth, lambda_dssim=cfg.lambda_dssim,
-        lambda_pseudo_depth=cfg.lambda_pseudo_depth,
-        lambda_gt_depth=cfg.lambda_gt_depth)
+    with span("train/render"):
+        bg = (torch.rand(3, generator=state.generator, device=g0.device)
+              if cfg.random_background else None)
+        params, offset = _leaves(g0)
+        g = g0.replace(**params)
+        out = rasterize(g, camera, raster_cfg, bg=bg, means2d_offset=offset)
+    with span("train/loss"):
+        loss, aux = losses.training_loss(
+            out.color, gt_image, depth=out.depth, gt_depth=gt_depth,
+            pseudo_depth=pseudo_depth, lambda_dssim=cfg.lambda_dssim,
+            lambda_pseudo_depth=cfg.lambda_pseudo_depth,
+            lambda_gt_depth=cfg.lambda_gt_depth)
     if pseudo_camera is not None and pseudo_view_depth is not None:
-        pv = rasterize(g, pseudo_camera, raster_cfg, bg=bg)
-        pv_loss = losses.pearson_depth_loss(pseudo_view_depth, pv.depth)
-        loss = loss + cfg.lambda_pseudo_view * pv_loss
-        aux["pseudo_view"] = pv_loss
-    grads = _grads(loss, params, offset)
-    new_state = _update(state, cfg, grads, out.visibility, out.radii,
-                        camera.width, camera.height)
+        with span("train/render"):
+            pv = rasterize(g, pseudo_camera, raster_cfg, bg=bg)
+        with span("train/loss"):
+            pv_loss = losses.pearson_depth_loss(pseudo_view_depth, pv.depth)
+            loss = loss + cfg.lambda_pseudo_view * pv_loss
+            aux["pseudo_view"] = pv_loss
+    with span("train/backward"):
+        grads = _grads(loss, params, offset)
+    with span("train/adam"):
+        new_state = _update(state, cfg, grads, out.visibility, out.radii,
+                            camera.width, camera.height)
     aux = {k: v.detach() for k, v in aux.items()}
     aux["num_rendered"] = out.num_rendered
     aux["overflow"] = out.overflow

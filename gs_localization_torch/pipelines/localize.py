@@ -23,6 +23,7 @@ from ..loc import TrackingConfig, refine_poses_batch
 from ..ops.image import compute_grad_mask, keypoint_box_mask
 from ..raster import RasterizerConfig
 from ..sfm.evaluate import pose_errors, summarize_errors
+from ..utils.profiling import count, host_read, note, span, upload
 
 
 @dataclass
@@ -53,14 +54,63 @@ def build_mask(image: np.ndarray, cfg: LocalizePipelineConfig,
                device="cuda") -> torch.Tensor:
     """Edge mask of the query image, OR the keypoint boxes, on ``device``."""
     device = resolve_device(device)
-    img = torch.tensor(np.asarray(image, np.float32), device=device)
+    img = upload(image, device)
     mask = compute_grad_mask(img, cfg.edge_threshold)
     if cfg.use_keypoint_mask and keypoints is not None and len(keypoints):
         h, w = image.shape[:2]
-        kp = torch.tensor(np.asarray(keypoints, np.float32),
-                          device=device)
+        kp = upload(keypoints, device)
         mask = mask | keypoint_box_mask(kp, w, h, cfg.keypoint_box)
     return mask
+
+
+def _localize_batch(gaussians: GaussianParams, batch: List[QuerySpec],
+                    cfg: LocalizePipelineConfig,
+                    raster_cfg: RasterizerConfig,
+                    log_fn: Callable[[str], None]):
+    """Upload, refine and audit one batch -> (the capacities it ended at,
+    its refined w2c poses (B, 4, 4) on the host)."""
+    dev = gaussians.device
+    with span("localize/upload"):
+        cams = [q.camera for q in batch]
+        imgs = torch.stack([upload(q.image, dev) for q in batch])
+        masks = torch.stack([build_mask(q.image, cfg, q.keypoints, dev)
+                             for q in batch])
+        deps = None
+        if not cfg.tracking.monocular:
+            deps = torch.stack([
+                upload(q.depth if q.depth is not None
+                        else np.zeros(q.image.shape[:2], np.float32), dev)
+                for q in batch])
+    grows = 0
+    while True:
+        with span("localize/refine"):
+            note(max_pairs=raster_cfg.max_pairs,
+                 max_per_tile=raster_cfg.max_per_tile,
+                 max_render=raster_cfg.max_render)
+            res = refine_poses_batch(gaussians, cams, imgs, masks,
+                                     cfg.tracking, raster_cfg,
+                                     gt_depths=deps)
+        with span("localize/audit"):
+            if not host_read("loc_overflow", res.overflow.any()):
+                count("host_sync/pose_download")
+                return raster_cfg, res.w2c.detach().cpu().numpy()
+        # capacity audit: a truncated render silently biases the refined
+        # pose, so grow every capacity and redo the batch
+        if grows >= cfg.max_capacity_growths:
+            raise RuntimeError(
+                f"binning overflow persists at max_pairs="
+                f"{raster_cfg.max_pairs} max_per_tile="
+                f"{raster_cfg.max_per_tile} after {grows} growths")
+        raster_cfg = raster_cfg.replace(
+            max_pairs=2 * raster_cfg.max_pairs,
+            max_per_tile=2 * raster_cfg.max_per_tile,
+            max_render=2 * (raster_cfg.max_render or raster_cfg.max_pairs))
+        grows += 1
+        count("capacity_growths")
+        log_fn(f"binning overflow: growing max_pairs to "
+               f"{raster_cfg.max_pairs} / max_per_tile to "
+               f"{raster_cfg.max_per_tile} / max_render to "
+               f"{raster_cfg.max_render}")
 
 
 def localize_queries(
@@ -72,52 +122,18 @@ def localize_queries(
 ) -> Tuple[Dict[str, np.ndarray], Optional[dict]]:
     """Refine all queries on the map's device. Returns ({name: w2c 4x4},
     metrics|None)."""
-    dev = gaussians.device
     results: Dict[str, np.ndarray] = {}
     errs_t: List[float] = []
     errs_r: List[float] = []
-
-    def f32(a):
-        return torch.tensor(np.asarray(a, np.float32), device=dev)
 
     b = cfg.batch_size
     n = len(queries)
     for lo in range(0, n, b):
         batch = list(queries[lo:lo + b])
-        cams = [q.camera for q in batch]
-        imgs = torch.stack([f32(q.image) for q in batch])
-        masks = torch.stack([build_mask(q.image, cfg, q.keypoints, dev)
-                             for q in batch])
-        deps = None
-        if not cfg.tracking.monocular:
-            deps = torch.stack([
-                f32(q.depth if q.depth is not None
-                    else np.zeros(q.image.shape[:2], np.float32))
-                for q in batch])
-        res = refine_poses_batch(gaussians, cams, imgs, masks, cfg.tracking,
-                                 raster_cfg, gt_depths=deps)
-        # capacity audit: a truncated render silently biases the refined
-        # pose, so grow every capacity and redo the batch
-        grows = 0
-        while bool(res.overflow.any()):
-            if grows >= cfg.max_capacity_growths:
-                raise RuntimeError(
-                    f"binning overflow persists at max_pairs="
-                    f"{raster_cfg.max_pairs} max_per_tile="
-                    f"{raster_cfg.max_per_tile} after {grows} growths")
-            raster_cfg = raster_cfg.replace(
-                max_pairs=2 * raster_cfg.max_pairs,
-                max_per_tile=2 * raster_cfg.max_per_tile,
-                max_render=2 * (raster_cfg.max_render
-                                or raster_cfg.max_pairs))
-            grows += 1
-            log_fn(f"binning overflow: growing max_pairs to "
-                   f"{raster_cfg.max_pairs} / max_per_tile to "
-                   f"{raster_cfg.max_per_tile} / max_render to "
-                   f"{raster_cfg.max_render}")
-            res = refine_poses_batch(gaussians, cams, imgs, masks,
-                                     cfg.tracking, raster_cfg, gt_depths=deps)
-        w2cs = res.w2c.detach().cpu().numpy()
+        with span("localize/batch", unit=",".join(q.name for q in batch)):
+            note(queries=len(batch))
+            raster_cfg, w2cs = _localize_batch(gaussians, batch, cfg,
+                                               raster_cfg, log_fn)
         for j, q in enumerate(batch):
             results[q.name] = w2cs[j]
             if q.gt_w2c is not None:

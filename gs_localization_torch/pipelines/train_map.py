@@ -45,6 +45,7 @@ from ..mapping.losses import psnr
 from ..mapping.pseudo_views import generate_pseudo_poses
 from ..mapping.train import grow_capacity
 from ..raster import RasterizerConfig, rasterize
+from ..utils.profiling import count, host_read, span, upload
 
 
 def _default_loader(log_fn: Callable[[str], None] = print):
@@ -104,6 +105,84 @@ class TrainPipelineConfig:
     camera_swap_iteration: Optional[int] = None
 
 
+def _audit_capacities(it: int, aux: dict, raster_cfg: RasterizerConfig,
+                      log_fn: Callable[[str], None]) -> RasterizerConfig:
+    """The capacity audit of step ``it`` -> the capacities to go on with:
+    a truncated tile list drops the farthest Gaussians from the render and
+    their gradients, so grow the capacities instead of training on
+    truncated work."""
+    tile_overflow = host_read("train_audit", aux["tile_overflow"])
+    overflow = host_read("train_audit", aux["overflow"])
+    if not (tile_overflow or overflow):
+        return raster_cfg
+    mtc = host_read("train_audit", aux["max_tile_count"])
+    if tile_overflow:
+        # (T, cap) layout: grow the per-tile cap to the true max count;
+        # stream layout: the materialized stream truncated
+        new_cap = raster_cfg.max_per_tile
+        while new_cap < mtc:
+            new_cap *= 2
+        mr = raster_cfg.max_render or raster_cfg.max_pairs
+        raster_cfg = raster_cfg.replace(max_per_tile=new_cap,
+                                        max_render=2 * mr)
+    if overflow:
+        raster_cfg = raster_cfg.replace(max_pairs=2 * raster_cfg.max_pairs)
+    log_fn(f"[{it}] binning overflow (max_tile_count={mtc}): "
+           f"raster capacities now max_per_tile="
+           f"{raster_cfg.max_per_tile} max_pairs="
+           f"{raster_cfg.max_pairs} max_render="
+           f"{raster_cfg.max_render}")
+    return raster_cfg
+
+
+def _densify_round(it: int, state, cfg: TrainPipelineConfig, extent: float,
+                   dev, log_fn: Callable[[str], None]):
+    """The densification round of step ``it`` -> the new training state;
+    counts the kept round's ``densify_cloned``, ``densify_split``,
+    ``densify_pruned`` and ``densify_dropped`` from the values its log line
+    reads."""
+    size_thr = (cfg.max_screen_size
+                if it > cfg.opacity_reset_interval else None)
+    while True:
+        # the split samples of this round, from (seed, iteration)
+        gen = torch.Generator(device=dev).manual_seed(
+            cfg.seed * 1_000_003 + it)
+        g2, d2, opt2, report = densify_and_prune(
+            state.gaussians, state.densify, state.opt_state,
+            generator=gen,
+            grad_threshold=cfg.densify_grad_threshold,
+            min_opacity=cfg.min_opacity, extent=extent,
+            max_screen_size=size_thr,
+            percent_dense=cfg.percent_dense)
+        dropped = host_read("densify_dropped", report.dropped)
+        if dropped == 0:
+            break
+        # free slots exhausted: grow capacity and redo this round
+        # from the untouched pre-densify state
+        old_cap = state.gaussians.capacity
+        new_cap = -(-int(old_cap * cfg.capacity_growth_factor)
+                    // 1024) * 1024
+        if cfg.max_capacity is not None:
+            new_cap = min(new_cap, cfg.max_capacity)
+        if new_cap <= old_cap:
+            log_fn(f"[{it}] densify dropped {dropped} "
+                   f"(at max_capacity {old_cap})")
+            break
+        state = grow_capacity(state, new_cap)
+        log_fn(f"[{it}] grew capacity {old_cap} -> {new_cap} "
+               f"({dropped} dropped)")
+    cloned, split, pruned, live = (
+        host_read("densify_log", v) for v in (
+            report.num_cloned, report.num_split, report.num_pruned,
+            g2.num_live))
+    for name, v in (("densify_cloned", cloned), ("densify_split", split),
+                    ("densify_pruned", pruned), ("densify_dropped", dropped)):
+        count(name, v)
+    log_fn(f"[{it}] densify: cloned {cloned} split {split} pruned {pruned}"
+           f" live {live} capacity {g2.capacity}")
+    return state.replace(gaussians=g2, densify=d2, opt_state=opt2)
+
+
 def train_map(
     scene: SceneInfo,
     out_dir: Optional[str] = None,
@@ -136,9 +215,7 @@ def train_map(
         if info.uid not in on_device:
             img, dep = image_loader(info)
             on_device[info.uid] = (
-                torch.tensor(np.asarray(img, np.float32), device=dev),
-                None if dep is None
-                else torch.tensor(np.asarray(dep, np.float32), device=dev))
+                upload(img, dev), None if dep is None else upload(dep, dev))
         return on_device[info.uid]
 
     capacity = max(int(scene.points.shape[0] * cfg.capacity_multiplier), 1024)
@@ -164,96 +241,50 @@ def train_map(
         log_fn(f"few-shot: generated {len(pseudo_cams)} pseudo views")
 
     for it in range(1, cfg.iterations + 1):
-        if (cfg.camera_swap_iteration is not None
-                and it == cfg.camera_swap_iteration
-                and cfg.max_cameras is not None
-                and len(all_cams) > cfg.max_cameras):
-            sel = rng.permutation(len(all_cams))
-            train_cams = [all_cams[i] for i in sel[:cfg.max_cameras]]
-            log_fn(f"[{it}] swapped to a fresh {len(train_cams)}-camera "
-                   "subset")
-        if it % cfg.sh_up_interval == 0:
-            state = state.replace(
-                gaussians=state.gaussians.one_up_sh_degree())
-        info = train_cams[rng.integers(len(train_cams))]
-        img, dep = load(info)
+        with span("train/step", unit=it):
+            if (cfg.camera_swap_iteration is not None
+                    and it == cfg.camera_swap_iteration
+                    and cfg.max_cameras is not None
+                    and len(all_cams) > cfg.max_cameras):
+                sel = rng.permutation(len(all_cams))
+                train_cams = [all_cams[i] for i in sel[:cfg.max_cameras]]
+                log_fn(f"[{it}] swapped to a fresh {len(train_cams)}-camera "
+                       "subset")
+            if it % cfg.sh_up_interval == 0:
+                state = state.replace(
+                    gaussians=state.gaussians.one_up_sh_degree())
+            info = train_cams[rng.integers(len(train_cams))]
+            with span("train/load"):
+                img, dep = load(info)
 
-        pseudo_cam = pseudo_view_depth = None
-        if (pseudo_cams and it % cfg.sample_pseudo_interval == 0
-                and cfg.start_sample_pseudo < it < cfg.end_sample_pseudo):
-            pseudo_cam = pseudo_cams[rng.integers(len(pseudo_cams))]
-            with torch.no_grad():
-                pv = rasterize(state.gaussians, pseudo_cam, raster_cfg)
-            pseudo_view_depth = torch.tensor(np.asarray(
-                depth_estimator(pv.color.cpu().numpy()), np.float32),
-                device=dev)
+            pseudo_cam = pseudo_view_depth = None
+            if (pseudo_cams and it % cfg.sample_pseudo_interval == 0
+                    and cfg.start_sample_pseudo < it < cfg.end_sample_pseudo):
+                with span("train/pseudo"):
+                    pseudo_cam = pseudo_cams[rng.integers(len(pseudo_cams))]
+                    with torch.no_grad():
+                        pv = rasterize(state.gaussians, pseudo_cam,
+                                       raster_cfg)
+                    count("host_sync/pseudo_view")
+                    pseudo_view_depth = upload(
+                        depth_estimator(pv.color.cpu().numpy()), dev)
 
-        state, aux = train_step(state, info.camera, img, map_cfg, raster_cfg,
-                                gt_depth=dep, pseudo_camera=pseudo_cam,
-                                pseudo_view_depth=pseudo_view_depth)
+            state, aux = train_step(state, info.camera, img, map_cfg,
+                                    raster_cfg, gt_depth=dep,
+                                    pseudo_camera=pseudo_cam,
+                                    pseudo_view_depth=pseudo_view_depth)
         if step_hook is not None:
             step_hook(it, aux)
 
-        # capacity audit every 10 steps: a truncated tile list drops the
-        # farthest Gaussians from the render and their gradients, so grow
-        # the capacities instead of training on truncated work
-        if it % 10 == 0 and (bool(aux["tile_overflow"])
-                             or bool(aux["overflow"])):
-            mtc = int(aux["max_tile_count"])
-            if bool(aux["tile_overflow"]):
-                # (T, cap) layout: grow the per-tile cap to the true max
-                # count; stream layout: the materialized stream truncated
-                new_cap = raster_cfg.max_per_tile
-                while new_cap < mtc:
-                    new_cap *= 2
-                mr = raster_cfg.max_render or raster_cfg.max_pairs
-                raster_cfg = raster_cfg.replace(max_per_tile=new_cap,
-                                                max_render=2 * mr)
-            if bool(aux["overflow"]):
-                raster_cfg = raster_cfg.replace(
-                    max_pairs=2 * raster_cfg.max_pairs)
-            log_fn(f"[{it}] binning overflow (max_tile_count={mtc}): "
-                   f"raster capacities now max_per_tile="
-                   f"{raster_cfg.max_per_tile} max_pairs="
-                   f"{raster_cfg.max_pairs} max_render="
-                   f"{raster_cfg.max_render}")
+        if it % 10 == 0:
+            with span("train/audit", unit=it):
+                raster_cfg = _audit_capacities(it, aux, raster_cfg, log_fn)
 
         if cfg.densify_from < it < cfg.densify_until \
                 and it % cfg.densification_interval == 0:
-            size_thr = (cfg.max_screen_size
-                        if it > cfg.opacity_reset_interval else None)
-            while True:
-                # the split samples of this round, from (seed, iteration)
-                gen = torch.Generator(device=dev).manual_seed(
-                    cfg.seed * 1_000_003 + it)
-                g2, d2, opt2, report = densify_and_prune(
-                    state.gaussians, state.densify, state.opt_state,
-                    generator=gen,
-                    grad_threshold=cfg.densify_grad_threshold,
-                    min_opacity=cfg.min_opacity, extent=scene.extent,
-                    max_screen_size=size_thr,
-                    percent_dense=cfg.percent_dense)
-                dropped = int(report.dropped)
-                if dropped == 0:
-                    break
-                # free slots exhausted: grow capacity and redo this round
-                # from the untouched pre-densify state
-                old_cap = state.gaussians.capacity
-                new_cap = -(-int(old_cap * cfg.capacity_growth_factor)
-                            // 1024) * 1024
-                if cfg.max_capacity is not None:
-                    new_cap = min(new_cap, cfg.max_capacity)
-                if new_cap <= old_cap:
-                    log_fn(f"[{it}] densify dropped {dropped} "
-                           f"(at max_capacity {old_cap})")
-                    break
-                state = grow_capacity(state, new_cap)
-                log_fn(f"[{it}] grew capacity {old_cap} -> {new_cap} "
-                       f"({dropped} dropped)")
-            state = state.replace(gaussians=g2, densify=d2, opt_state=opt2)
-            log_fn(f"[{it}] densify: cloned {int(report.num_cloned)} split "
-                   f"{int(report.num_split)} pruned {int(report.num_pruned)}"
-                   f" live {int(g2.num_live)} capacity {g2.capacity}")
+            with span("train/densify", unit=it):
+                state = _densify_round(it, state, cfg, scene.extent, dev,
+                                       log_fn)
 
         # skip the reset when too few iterations remain to recover from it
         if (it % cfg.opacity_reset_interval == 0
@@ -262,8 +293,8 @@ def train_map(
             state = state.replace(gaussians=g2, opt_state=opt2)
 
         if it % cfg.log_every == 0:
-            log_fn(f"[{it}] loss={float(aux['total']):.5f} "
-                   f"live={int(state.gaussians.num_live)} "
+            log_fn(f"[{it}] loss={host_read('train_log', aux['total']):.5f} "
+                   f"live={host_read('train_log', state.gaussians.num_live)} "
                    f"({(time.time() - t0) / cfg.log_every * 1000:.0f} ms/it)")
             t0 = time.time()
 
@@ -273,7 +304,8 @@ def train_map(
                 for tinfo in scene.test_cameras[:8]:
                     timg, _ = load(tinfo)
                     out = rasterize(state.gaussians, tinfo.camera, raster_cfg)
-                    vals.append(float(psnr(out.color, timg)))
+                    vals.append(host_read("train_psnr",
+                                          psnr(out.color, timg)))
             log_fn(f"[{it}] test PSNR {np.mean(vals):.2f}")
 
         if out_dir and it in cfg.save_iterations:

@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import count_wait
 from .constants import ALPHA_MIN as _ALPHA_MIN
 from .preprocess import Preprocessed
 
@@ -183,6 +184,7 @@ def _emit_pair_keys(prep: Preprocessed, order: torch.Tensor, grid_x: int,
     seg = starts[:p]
     in_pool = seg < max_pairs
     mark = torch.zeros(max_pairs, dtype=torch.int32, device=dev)
+    count_wait("bin_mask", dev, 2)
     mark.scatter_reduce_(0, seg[in_pool].long(), _arange(p, dev)[in_pool],
                          reduce="amax")
     gsrt = torch.cummax(mark, 0).values
@@ -274,6 +276,7 @@ def bin_stream(
     # aligned stream contents; gaps and the truncated tail hold dead row P
     gid_of_apos = torch.full((mr_al,), p, dtype=torch.int32, device=dev)
     put = pos_live & (ap_of_pos < mr_al)
+    count_wait("bin_mask", dev, 4)        # the two writes' mask indices
     gid_of_apos[ap_of_pos[put].long()] = gid_mr[put]
     # inverse map: slot -> aligned position (unmapped slots -> mr_al)
     ap_by_slot = torch.full((s,), mr_al, dtype=torch.int32, device=dev)

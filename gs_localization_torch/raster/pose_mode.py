@@ -25,6 +25,7 @@ import torch
 
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams
+from ..utils.profiling import span
 from . import stream_blend
 from .pallas_blend import blend_pregathered_pallas
 from .preprocess import build_cov3d, preprocess
@@ -198,15 +199,21 @@ def build_stream_pair_pack(
     config: RasterizerConfig,
 ) -> StreamPairPack:
     """Preprocess + stream-bin at the given pose, gather params ONCE into
-    the aligned pair stream. No per-tile cap."""
+    the aligned pair stream. No per-tile cap. Spans ``rebin/preprocess``,
+    ``rebin/bin`` (``bin_stream``: the sorts, ``cummax``, the search) and
+    ``rebin/gather`` (the pose-independent rows and ``assemble_stream``)."""
     chunk = config.pallas_chunk
-    prep = preprocess(gaussians, camera, tile_size=config.tile_size,
-                      scale_modifier=config.scale_modifier)
-    sbins = bin_stream_for(prep, camera, config)
-    pack = _param_pack(gaussians, prep, config)
-    # dead positions: zero params -> det == 0 -> gated out of the blend
+    with span("rebin/preprocess"):
+        prep = preprocess(gaussians, camera, tile_size=config.tile_size,
+                          scale_modifier=config.scale_modifier)
+    with span("rebin/bin"):
+        sbins = bin_stream_for(prep, camera, config)
+    with span("rebin/gather"):
+        pack = _param_pack(gaussians, prep, config)
+        # dead positions: zero params -> det == 0 -> gated out of the blend
+        params = stream_blend.assemble_stream(pack, sbins.gid_of_pos, chunk)
     return StreamPairPack(
-        params=stream_blend.assemble_stream(pack, sbins.gid_of_pos, chunk),
+        params=params,
         tstart=sbins.tstart,
         walk_counts=sbins.walk_counts,
         kept_al=sbins.kept_al,

@@ -24,6 +24,7 @@ import torch
 
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams
+from ..utils.profiling import span
 from . import binning as binning_lib
 from . import blend as blend_lib
 from . import pallas_blend, stream_blend
@@ -169,7 +170,7 @@ def rasterize(
         means2d = means2d + means2d_offset
     if bins is None or (isinstance(bins, binning_lib.StreamBins)
                         and not config.use_stream):
-        with torch.no_grad():
+        with span("render/binning"), torch.no_grad():
             bins = bins_for(prep, camera, config)
 
     if isinstance(bins, binning_lib.StreamBins):

@@ -48,6 +48,9 @@ EXEMPT = {
     ("utils/profiling.py", "enable_persistent_compile_cache"):
         "XLA's compile cache; the port builds its kernels once per source "
         "hash under build/",
+    ("utils/profiling.py", "StepTimer"):
+        "nothing read it and it synchronised the device every step; the "
+        "port's phases are timed by utils/profiling.py's spans",
     ("sfm/__init__.py", "convert_torch_weights_superglue"): _CONVERT,
     ("sfm/superpoint.py", "convert_torch_weights"): _CONVERT,
     ("sfm/superglue.py", "convert_torch_weights_superglue"): _CONVERT,

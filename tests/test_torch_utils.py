@@ -1,5 +1,5 @@
 """The port's ``utils``: config inheritance (against the JAX package's),
-the JSONL metrics logger, the step timer on the CPU, a profiler trace, and
+the JSONL metrics logger, a profiler trace with the port's spans, and
 the web viewer serving frames on a free port."""
 
 import json
@@ -15,7 +15,8 @@ from gs_localization_torch.raster import RasterizerConfig
 from gs_localization_torch.utils import load_config, merge_config
 from gs_localization_torch.utils.logging import (MetricsLogger,
                                                  timestamped_print)
-from gs_localization_torch.utils.profiling import StepTimer, trace
+from gs_localization_torch.utils import profiling
+from gs_localization_torch.utils.profiling import trace
 from gs_localization_torch.utils.viewer import orbit_w2c, serve
 from helpers import random_scene
 from torch_bridge import gaussians_to_torch
@@ -59,20 +60,33 @@ def test_metrics_logger(tmp_path, capsys):
 
 
 def test_step_timer_on_cpu(tmp_path):
-    timer = StepTimer(ema=0.5, pixels_per_step=1_000_000)
-    assert timer.summary() == "n/a"
-    timer.sync(torch.zeros(3))
-    for _ in range(3):
-        time.sleep(0.02)
-        timer.sync(torch.ones(3) * 2)
-    assert timer.steps == 3
-    assert 15.0 < timer.ema_ms < 500.0
-    assert timer.iters_per_s == pytest.approx(1000.0 / timer.ema_ms)
-    assert timer.mpix_per_s == pytest.approx(1.0 / (timer.ema_ms / 1e3))
-    assert "ms/it" in timer.summary() and "Mpix/s" in timer.summary()
+    """``trace()`` writes the Chrome trace and the spans it recorded, from
+    a reset: a span opened before it is gone, one inside it is kept."""
+    with torch.profiler.profile():
+        with profiling.span("before"):
+            profiling.count("before")
     with trace(str(tmp_path / "prof")) as prof:
-        torch.ones(64).sum()
+        with profiling.span("outer", unit="u0"):
+            profiling.count("upload_bytes", 12)
+            with profiling.span("inner"):
+                time.sleep(0.002)
+                torch.ones(64).sum()
     assert prof is not None and (tmp_path / "prof" / "trace.json").exists()
+    names = [e["name"] for e in json.loads(
+        (tmp_path / "prof" / "trace.json").read_text())["traceEvents"]]
+    assert "gsloc/outer" in names and "gsloc/inner" in names
+    spans = json.loads((tmp_path / "prof" / "spans.json").read_text())
+    assert [s["name"] for s in spans["spans"]] == ["outer", "inner"]
+    assert spans["counters"] == {"upload_bytes": 12}
+    outer, inner = spans["by_name"]["outer"], spans["by_name"]["inner"]
+    assert outer["count"] == inner["count"] == 1
+    assert inner["host_ms"] >= 2.0
+    assert outer["self_host_ms"] == pytest.approx(
+        outer["host_ms"] - inner["host_ms"])
+    # no card: no stream time and no device intervals to find idle time in
+    assert inner["stream_ms"] is None and inner["device_idle_ms"] is None
+    assert spans["device"]["activities"] == 0
+    assert spans["device"]["idle_ms"] is None
 
 
 def test_viewer_serves_frames():
