@@ -48,7 +48,8 @@ __version__ = "0.1.0"
 # Launch counters of the hand-written kernels: each wrapper adds one where
 # it launches its kernel, and nowhere else.
 LAUNCHES: Dict[str, int] = {"stream_fwd": 0, "stream_bwd": 0,
-                            "pregathered_fwd": 0, "pregathered_bwd": 0}
+                            "pregathered_fwd": 0, "pregathered_bwd": 0,
+                            "bin_owner": 0, "bin_place": 0}
 
 
 def _init_cpu_vector_math() -> None:

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` (the stream blend K1/K2 and the pregathered blend
-K3/K4, which share ``csrc/blend_common.cuh``) is compiled by ``nvcc`` at
+K3/K4, which share ``csrc/blend_common.cuh``; binning's slot-owner and
+stream-placement kernels, ``csrc/binning.cu``) is compiled by ``nvcc`` at
 first use, one process per source, all started together, and the objects
 are linked into one shared library with a plain C interface in
 ``build/torch_kernels/`` beside the package. The library's name carries a
@@ -101,6 +102,27 @@ def load() -> ctypes.CDLL:
         _LIB.gsl_kernel_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
         _LIB.gsl_kernel_info.restype = ctypes.c_int
     return _LIB
+
+
+def check_tensor(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel's wrapper checks before passing its pointer."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} "
+                           f"({lib.gsl_error_string(rc).decode()})")
 
 
 KERNELS = ("K1 stream_fwd", "K2 stream_bwd", "K3 pregathered_fwd",

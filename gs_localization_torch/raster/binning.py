@@ -9,28 +9,41 @@ Same pair semantics as the JAX package's ``bin_stream`` and
 2. offset-major pair expansion: Gaussian s emits its k-th covered tile for
    k < fast_k directly into a dense (P, fast_k) matrix; Gaussians covering
    more than fast_k tiles go through a slow pool of static capacity
-   ``max_pairs`` (scatter-max of each rank at its segment start, then a
-   running max recovers the owner of each pool slot).
+   ``max_pairs``, whose slot j belongs to the largest rank whose segment
+   starts at or before j (``slot_owner``).
 3. pairs sort once by a **packed int32 key** ``tile * R + depth_rank``
    (R = next pow2 >= P); a per-tile opacity cull drops (Gaussian, tile)
    pairs whose max alpha over the tile is below the blend's 1/255 gate.
 4. per-tile [start, count) by a searchsorted on the key boundaries, then
    either an aligned layout (stream: tile t's pairs live at [tstart[t],
    tstart[t]+count) with tstart a multiple of ``align`` so windows never
-   overlap across tiles) or a padded (num_tiles, max_per_tile) id matrix.
+   overlap across tiles; ``place_stream``) or a padded (num_tiles,
+   max_per_tile) id matrix.
 
 All shapes are static; the slow pool (``overflow``) and the materialized
 stream or per-tile cap (``tile_overflow``) are the capacities and are
 reported as flags.
+
+The two segment expansions (``slot_owner``, ``place_stream``) have two
+implementations each, chosen by the device of the tensors: CUDA tensors
+launch the hand-written kernels of ``csrc/binning.cu`` (a binary search per
+slot or position; no scan, nothing read to the host), or raise; CPU tensors
+take the plain versions (``slot_owner_plain``, ``place_stream_plain``: a
+scatter-max and a running max, as the JAX package computes them), which
+are the yardstick the kernels are held against on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
-from ..utils.profiling import count_wait
+from .. import LAUNCHES
+from .. import _kernels
+from .._kernels import check_tensor, raise_on
 from .constants import ALPHA_MIN as _ALPHA_MIN
 from .preprocess import Preprocessed
 
@@ -137,6 +150,162 @@ def _arange(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
+# ---------------------------------------------------------------------------
+# segment expansions: plain versions, CUDA kernels, device dispatch
+# ---------------------------------------------------------------------------
+
+def slot_owner_plain(starts: torch.Tensor, p: int,
+                     max_pairs: int) -> torch.Tensor:
+    """(max_pairs,) int32 owner rank of each slow-pool slot: each of the
+    ``p`` ranks marks its segment start ``starts[rank]`` (the largest rank
+    wins; starts at or past the pool are dropped), then a running max fills
+    the segment."""
+    dev = starts.device
+    seg = starts[:p]
+    in_pool = seg < max_pairs
+    mark = torch.zeros(max_pairs, dtype=torch.int32, device=dev)
+    mark.scatter_reduce_(0, seg[in_pool].long(), _arange(p, dev)[in_pool],
+                         reduce="amax")
+    return torch.cummax(mark, 0).values
+
+
+def place_stream_plain(keys_sorted: torch.Tensor, slot_of_pos: torch.Tensor,
+                       order: torch.Tensor, tstart_pos: torch.Tensor,
+                       astart_all: torch.Tensor, kept: torch.Tensor, mr: int,
+                       mr_al: int, rank_size: int):
+    """The first ``mr`` sorted positions laid into the aligned stream:
+    -> (rank_of_pos (mr,), gid_of_apos (mr_al,), ap_by_slot (S,)), int32.
+
+    Position i's aligned position is i plus its tile's shift
+    ``astart_all[t] - tstart_pos[t]`` (constant per tile and non-decreasing:
+    each tile's shift is scatter-maxed at its first position, clamped to
+    ``mr - 1``, and a running max broadcasts it). The live positions (i <
+    ``kept``, a 0-d tensor) write their Gaussian id at it (below ``mr_al``)
+    and it at their slot ``slot_of_pos[i]``; gaps and the truncated tail
+    hold the dead row P, unmapped slots ``mr_al``."""
+    dev = keys_sorted.device
+    p = order.shape[0]
+    s = keys_sorted.shape[0]
+    rank_mr = torch.clamp_max(keys_sorted[:mr] & (rank_size - 1), p - 1)
+    gid_mr = order[rank_mr.long()]
+    shift = astart_all[:-1] - tstart_pos                 # (T,) >= 0
+    pos_iota = _arange(mr, dev)
+    heads = torch.zeros(mr, dtype=torch.int32, device=dev)
+    if mr > 0:
+        heads.scatter_reduce_(0, torch.clamp_max(tstart_pos, mr - 1).long(),
+                              shift, reduce="amax")
+    shift_of_pos = torch.cummax(heads, 0).values
+    ap_of_pos = pos_iota + shift_of_pos                  # aligned position
+    pos_live = pos_iota < kept
+
+    gid_of_apos = torch.full((mr_al,), p, dtype=torch.int32, device=dev)
+    put = pos_live & (ap_of_pos < mr_al)
+    gid_of_apos[ap_of_pos[put].long()] = gid_mr[put]
+    ap_by_slot = torch.full((s,), mr_al, dtype=torch.int32, device=dev)
+    slot_mr = slot_of_pos[:mr]
+    put = pos_live & (slot_mr < s)
+    ap_by_slot[slot_mr[put].long()] = ap_of_pos[put]
+    return rank_mr, gid_of_apos, ap_by_slot
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _kernels.load()
+    lib.gsl_bin_owner.argtypes = [_P, _I, _I, _P, _P]
+    lib.gsl_bin_owner.restype = _I
+    lib.gsl_bin_place.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _P, _P, _P, _P]
+    lib.gsl_bin_place.restype = _I
+    return lib
+
+
+def slot_owner_cuda(starts: torch.Tensor, p: int,
+                    max_pairs: int) -> torch.Tensor:
+    """``slot_owner_plain`` by the kernel ``bin_owner`` (a binary search of
+    each slot in ``starts``)."""
+    dev = starts.device
+    if not starts.is_cuda:
+        raise ValueError(f"the CUDA slot owner takes CUDA tensors, got {dev}")
+    check_tensor(starts, "starts", torch.int32, (p + 1,), dev)
+    owner = torch.empty(max_pairs, dtype=torch.int32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.gsl_bin_owner(starts.data_ptr(), p, max_pairs,
+                               owner.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, rc, "slot owner launch")
+    LAUNCHES["bin_owner"] += 1
+    return owner
+
+
+def place_stream_cuda(keys_sorted: torch.Tensor, slot_of_pos: torch.Tensor,
+                      order: torch.Tensor, tstart_pos: torch.Tensor,
+                      astart_all: torch.Tensor, kept: torch.Tensor, mr: int,
+                      mr_al: int, rank_size: int):
+    """``place_stream_plain`` by the kernel ``bin_place`` (a binary search of
+    each position in the clamped tile starts); ``slot_of_pos`` is int64, as
+    ``torch.sort`` gives it."""
+    dev = keys_sorted.device
+    if not keys_sorted.is_cuda:
+        raise ValueError(f"the CUDA stream placement takes CUDA tensors, got "
+                         f"{dev}")
+    p = order.shape[0]
+    s = keys_sorted.shape[0]
+    num_tiles = tstart_pos.shape[0]
+    if p < 1:
+        raise ValueError("place_stream: no ranks to place")
+    if not 0 <= mr <= s:
+        raise ValueError(f"place_stream: mr {mr} outside [0, {s}]")
+    for t, name, dtype, shape in (
+            (keys_sorted, "keys_sorted", torch.int32, (s,)),
+            (slot_of_pos, "slot_of_pos", torch.int64, (s,)),
+            (order, "order", torch.int32, (p,)),
+            (tstart_pos, "tstart_pos", torch.int32, (num_tiles,)),
+            (astart_all, "astart_all", torch.int32, (num_tiles + 1,)),
+            (kept, "kept", torch.int32, ())):
+        check_tensor(t, name, dtype, shape, dev)
+    out = dict(dtype=torch.int32, device=dev)
+    rank_of_pos = torch.empty(mr, **out)
+    gid_of_apos = torch.full((mr_al,), p, **out)
+    ap_by_slot = torch.full((s,), mr_al, **out)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.gsl_bin_place(
+            keys_sorted.data_ptr(), slot_of_pos.data_ptr(), order.data_ptr(),
+            tstart_pos.data_ptr(), astart_all.data_ptr(), kept.data_ptr(),
+            mr, mr_al, s, num_tiles, rank_size - 1, p, rank_of_pos.data_ptr(),
+            gid_of_apos.data_ptr(), ap_by_slot.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, rc, "stream placement launch")
+    LAUNCHES["bin_place"] += 1
+    return rank_of_pos, gid_of_apos, ap_by_slot
+
+
+def slot_owner(starts: torch.Tensor, p: int, max_pairs: int) -> torch.Tensor:
+    """The kernel on CUDA tensors, its plain version on CPU tensors."""
+    if starts.is_cuda:
+        return slot_owner_cuda(starts, p, max_pairs)
+    if starts.device.type == "cpu":
+        return slot_owner_plain(starts, p, max_pairs)
+    raise ValueError(f"unsupported device {starts.device}")
+
+
+def place_stream(keys_sorted, slot_of_pos, order, tstart_pos, astart_all,
+                 kept, mr: int, mr_al: int, rank_size: int):
+    """The kernel on CUDA tensors, its plain version on CPU tensors."""
+    args = (keys_sorted, slot_of_pos, order, tstart_pos, astart_all, kept,
+            mr, mr_al, rank_size)
+    if keys_sorted.is_cuda:
+        return place_stream_cuda(*args)
+    if keys_sorted.device.type == "cpu":
+        return place_stream_plain(*args)
+    raise ValueError(f"unsupported device {keys_sorted.device}")
+
+
 def _emit_pair_keys(prep: Preprocessed, order: torch.Tensor, grid_x: int,
                     grid_y: int, rank_size: int, max_pairs: int,
                     fast_k: int, tile_size: int, tile_cull: bool):
@@ -179,19 +348,12 @@ def _emit_pair_keys(prep: Preprocessed, order: torch.Tensor, grid_x: int,
     total_slow = starts[-1]
     pair_idx = _arange(max_pairs, dev)
     pair_ok = pair_idx < torch.clamp_max(total_slow, max_pairs)
-    # owner of each pool slot: each rank marks its segment start (largest
-    # rank wins, as .at[].max), then a running max fills the segment
-    seg = starts[:p]
-    in_pool = seg < max_pairs
-    mark = torch.zeros(max_pairs, dtype=torch.int32, device=dev)
-    count_wait("bin_mask", dev, 2)
-    mark.scatter_reduce_(0, seg[in_pool].long(), _arange(p, dev)[in_pool],
-                         reduce="amax")
-    gsrt = torch.cummax(mark, 0).values
+    gsrt = slot_owner(starts, p, max_pairs)
     # starts fit f32 exactly below 2^24 (one packed gather needs one dtype)
     assert max_pairs < 2**24, "slow pool too large for the f32-packed table"
     table = torch.cat([ctab[:, 0:2], w_s.to(torch.float32)[:, None],
-                       seg.to(torch.float32)[:, None], ctab[:, 4:10]], dim=1)
+                       starts[:p].to(torch.float32)[:, None], ctab[:, 4:10]],
+                      dim=1)
     rows = table[gsrt.long()]               # one packed row gather (MP, 10)
     local = pair_idx - rows[:, 3].to(torch.int32)
     w_g = rows[:, 2].to(torch.int32)
@@ -240,7 +402,6 @@ def bin_stream(
     # live keys are unique, so only the sentinel tail could order
     # differently from the JAX two-operand sort; no live slot reads it
     keys_sorted, slot_of_pos = torch.sort(keys, stable=True)
-    slot_of_pos = slot_of_pos.to(torch.int32)
 
     boundaries = _arange(num_tiles + 1, dev) * rank_size
     bounds = torch.searchsorted(keys_sorted, boundaries, right=False).to(
@@ -258,31 +419,9 @@ def bin_stream(
     astart = torch.clamp_max(astart_all[:-1], mr_al)
     walk_counts = torch.minimum(tcount, torch.clamp_min(mr_al - astart, 0))
 
-    rank_mr = torch.clamp_max(keys_sorted[:mr] & (rank_size - 1), p - 1)
-    gid_mr = order[rank_mr.long()]
-    # per-position shift into the aligned layout, constant per tile and
-    # non-decreasing: scatter-max each tile's shift at its first position,
-    # then a running max broadcasts it
-    shift = astart_all[:-1] - tstart_pos                 # (T,) >= 0
-    pos_iota = _arange(mr, dev)
-    heads = torch.zeros(mr, dtype=torch.int32, device=dev)
-    if mr > 0:
-        heads.scatter_reduce_(0, torch.clamp_max(tstart_pos, mr - 1).long(),
-                              shift, reduce="amax")
-    shift_of_pos = torch.cummax(heads, 0).values
-    ap_of_pos = pos_iota + shift_of_pos                  # aligned position
-    pos_live = pos_iota < kept
-
-    # aligned stream contents; gaps and the truncated tail hold dead row P
-    gid_of_apos = torch.full((mr_al,), p, dtype=torch.int32, device=dev)
-    put = pos_live & (ap_of_pos < mr_al)
-    count_wait("bin_mask", dev, 4)        # the two writes' mask indices
-    gid_of_apos[ap_of_pos[put].long()] = gid_mr[put]
-    # inverse map: slot -> aligned position (unmapped slots -> mr_al)
-    ap_by_slot = torch.full((s,), mr_al, dtype=torch.int32, device=dev)
-    slot_mr = slot_of_pos[:mr]
-    put = pos_live & (slot_mr < s)
-    ap_by_slot[slot_mr[put].long()] = ap_of_pos[put]
+    rank_mr, gid_of_apos, ap_by_slot = place_stream(
+        keys_sorted, slot_of_pos, order, tstart_pos, astart_all, kept, mr,
+        mr_al, rank_size)
 
     num_rendered = torch.sum(touched_s, dtype=torch.int32)
     max_tile_count = torch.max(tcount)

@@ -200,7 +200,8 @@ def build_stream_pair_pack(
 ) -> StreamPairPack:
     """Preprocess + stream-bin at the given pose, gather params ONCE into
     the aligned pair stream. No per-tile cap. Spans ``rebin/preprocess``,
-    ``rebin/bin`` (``bin_stream``: the sorts, ``cummax``, the search) and
+    ``rebin/bin`` (``bin_stream``: the sorts, the search, the binning
+    kernels' segment expansions) and
     ``rebin/gather`` (the pose-independent rows and ``assemble_stream``)."""
     chunk = config.pallas_chunk
     with span("rebin/preprocess"):

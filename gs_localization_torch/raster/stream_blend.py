@@ -37,6 +37,8 @@ import torch
 
 from .. import LAUNCHES
 from .. import _kernels
+from .._kernels import check_tensor as _check
+from .._kernels import raise_on as _raise_on
 from .binning import StreamBins
 from .blend import TileBlendOut
 from .constants import ALPHA_MAX, ALPHA_MIN, LOG_T_EPS
@@ -290,18 +292,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def _check_common(stream, tstart, walk_counts, ts: int, chunk: int) -> None:
     if ts != _TILE:
         raise ValueError(f"the CUDA stream blend takes tile_size {_TILE}, "
@@ -322,12 +312,6 @@ def _check_common(stream, tstart, walk_counts, ts: int, chunk: int) -> None:
     _check(walk_counts, "walk_counts", torch.int32, tstart.shape, dev)
     if tstart.dim() != 1:
         raise ValueError("tstart must be 1-D")
-
-
-def _raise_on(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} "
-                           f"({lib.gsl_error_string(rc).decode()})")
 
 
 def stream_blend_fwd_cuda(stream, tstart, walk_counts, grid_x: int, ts: int,

@@ -10,6 +10,8 @@ import pytest
 from gs_localization_tpu.raster import binning as jbin
 from gs_localization_tpu.raster.preprocess import preprocess as j_preprocess
 from gs_localization_torch.raster import binning as tbin
+from binning_cases import (EXPANSION_CASES, expansion_case, owner_rule,
+                           place_rule)
 from helpers import make_camera, random_scene
 from torch_bridge import np_of, prep_to_torch
 
@@ -101,3 +103,29 @@ def test_packed_key_assert():
                         z.int(), z.bool())
     with pytest.raises(AssertionError, match="packed sort key"):
         tbin.bin_stream(prep, 200, 200, max_pairs=64, max_render=64)
+
+
+PLACE_ARGS = ("keys_sorted", "slot_of_pos", "order", "tstart_pos",
+              "astart_all", "kept")
+
+
+@pytest.mark.parametrize("name", list(EXPANSION_CASES))
+def test_segment_expansions_follow_brute_force(name):
+    """The plain versions behind the binning kernels' interfaces
+    (``slot_owner``, ``place_stream``) against the brute-force rules of
+    ``binning_cases``, at their edges."""
+    import torch
+    c = expansion_case(name)
+    owner = tbin.slot_owner(torch.from_numpy(c["starts"]), c["p"],
+                            c["max_pairs"])
+    np.testing.assert_array_equal(
+        owner.numpy(), owner_rule(c["starts"], c["p"], c["max_pairs"]))
+    got = tbin.place_stream(*(torch.from_numpy(np.asarray(c[k]))
+                              for k in PLACE_ARGS),
+                            c["mr"], c["mr_al"], c["rank_size"])
+    want = place_rule(*(c[k] for k in PLACE_ARGS), c["mr"], c["mr_al"],
+                      c["rank_size"])
+    for field, g, w in zip(("rank_of_pos", "gid_of_pos", "pos_by_slot"), got,
+                           want):
+        assert g.dtype == torch.int32, field
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=field)

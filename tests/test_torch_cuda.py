@@ -18,12 +18,14 @@ from gs_localization_torch.core.gaussians import FIELDS, GaussianParams
 from gs_localization_torch.loc import TrackingConfig, refine_pose
 from gs_localization_torch.mapping import train as mtrain
 from gs_localization_torch.raster import RasterizerConfig, rasterize
+from gs_localization_torch.raster import binning
 from gs_localization_torch.raster import pallas_blend as pb
 from gs_localization_torch.raster import stream_blend as sb
 from gs_localization_torch.raster.constants import LOG_T_EPS
 from gs_localization_torch.raster.pose_mode import (
     _project_pairs, _project_stream, build_pair_pack, build_stream_pair_pack,
     render_pose_mode)
+from binning_cases import EXPANSION_CASES, expansion_case
 from blend_edges import EDGE_GRID, drift_window, edge_stream, edge_windows
 
 pytestmark = pytest.mark.cuda
@@ -1045,3 +1047,161 @@ def test_one_rank_nccl_group_matches_unsharded(case, tmp_path):
                                    rtol=0)
     finally:
         runtime.shutdown_runtime()
+
+
+# ---------------------------------------------------------------------------
+# binning: the two segment-expansion kernels (csrc/binning.cu)
+# ---------------------------------------------------------------------------
+
+BIN_FIELDS = {
+    "stream": ("order", "rank_of_pos", "gid_of_pos", "pos_by_slot",
+               "slow_starts", "tstart", "walk_counts", "tile_counts", "kept",
+               "kept_al", "num_rendered", "overflow", "tile_overflow",
+               "max_tile_count"),
+    "ids": ("tile_gid", "tile_mask", "tile_counts", "num_rendered",
+            "overflow", "tile_overflow", "max_tile_count"),
+}
+# name -> (scene, width x height, RasterizerConfig fields)
+BIN_CASES = {
+    "bench_640x480_sh3": ("bench3", (640, 480, 585.0),
+                          dict(max_pairs=1 << 21, max_render=1 << 21)),
+    "bench_1024x576_sh1": ("bench1", (1024, 576, 893.25),
+                           dict(max_pairs=1 << 21, max_render=1 << 21)),
+    "slow_heavy": ("slow_heavy", (64, 48, None),
+                   dict(max_pairs=1 << 15, max_render=1 << 15, fast_k=1,
+                        pallas_chunk=32, max_per_tile=256)),
+    "truncation": ("slow_heavy", (64, 48, None),
+                   dict(max_pairs=1 << 15, max_render=64, fast_k=1,
+                        pallas_chunk=32, max_per_tile=256)),
+    "pool_overflow": ("slow_heavy", (64, 48, None),
+                      dict(max_pairs=16, max_render=1 << 15, fast_k=1,
+                           pallas_chunk=32, max_per_tile=256)),
+    "empty_tiles": ("sparse", (96, 64, None),
+                    dict(max_pairs=1 << 14, max_render=1 << 14, fast_k=1,
+                         pallas_chunk=128, max_per_tile=128)),
+}
+
+
+def _bin_scene(name: str) -> dict:
+    """numpy Gaussians: the bench map (chip_smoke.py's recipe, 100,000
+    Gaussians) at SH 3 or 1, a slow-path-heavy scene of wide splats, or a
+    sparse one that leaves tiles empty."""
+    if name.startswith("bench"):
+        deg = int(name[-1])
+        rng = np.random.default_rng(0)
+        n = 100_000
+        xyz = np.stack([rng.uniform(-2.5, 2.5, n), rng.uniform(-2.0, 2.0, n),
+                        rng.uniform(2.0, 9.0, n)], 1)
+        fdc = sh_lib.rgb_to_sh_dc(rng.uniform(0.05, 0.95, (n, 3)))[:, None]
+        frest = 0.05 * rng.standard_normal((n, sh_lib.num_sh_coeffs(deg) - 1,
+                                            3))
+        return {"xyz": xyz, "features_dc": fdc, "features_rest": frest,
+                "scaling": rng.uniform(-4.5, -3.0, (n, 3)),
+                "rotation": np.tile([[1.0, 0, 0, 0]], (n, 1)),
+                "opacity": rng.uniform(-1.0, 2.5, (n, 1)),
+                "live": np.ones(n, bool), "deg": deg}
+    if name == "slow_heavy":
+        arrays = _scene(3, 120, 1.0)
+        arrays["scaling"] = np.random.default_rng(3).uniform(-2.5, -1.2,
+                                                             (120, 3))
+    else:
+        arrays = _scene(4, 40, 0.5)
+    return {**arrays, "deg": 2}
+
+
+def _bin_prep(case: str, device):
+    """The case's preprocessed map (computed on the CPU, so that both
+    devices bin the same floats), its grid and its config."""
+    from gs_localization_torch.raster.preprocess import Preprocessed, preprocess
+
+    scene, (w, h, fx), fields = BIN_CASES[case]
+    arrays = _bin_scene(scene)
+    deg = arrays.pop("deg")
+    g = GaussianParams.from_numpy(arrays, deg, deg, device="cpu")
+    fx = fx or w / (2.0 * np.tan(0.5))
+    cam = Camera.from_rt(np.eye(3), np.zeros(3), fx, fx, w, h, device="cpu")
+    with torch.no_grad():
+        prep = preprocess(g, cam)
+    cfg = RasterizerConfig(**fields)
+    return (prep, Preprocessed(*(x.to(device) for x in prep)), cam, cfg)
+
+
+@pytest.mark.parametrize("name", list(BIN_CASES))
+def test_binning_cuda_matches_cpu(cuda_device, name):
+    """``bin_stream`` and ``bin_gaussians`` on the card (the two binning
+    kernels) equal the CPU path (scatter-max and ``cummax``) in every
+    integer of every field."""
+    from gs_localization_torch.raster.rasterize import (bin_gaussians_for,
+                                                        bin_stream_for)
+
+    prep_cpu, prep_k, cam, cfg = _bin_prep(name, cuda_device)
+    for layout, fn in (("stream", bin_stream_for), ("ids", bin_gaussians_for)):
+        k, p = fn(prep_k, cam, cfg), fn(prep_cpu, cam, cfg)
+        for field in BIN_FIELDS[layout]:
+            a, b = getattr(k, field), getattr(p, field)
+            assert a.is_cuda and a.dtype == b.dtype, (layout, field)
+            assert torch.equal(a.cpu(), b), (layout, field)
+    sb_cpu = bin_stream_for(prep_cpu, cam, cfg)
+    if name == "truncation":
+        assert bool(sb_cpu.tile_overflow) and int(sb_cpu.kept) == 64
+    if name == "pool_overflow":
+        assert bool(sb_cpu.overflow)
+    if name == "empty_tiles":
+        assert (sb_cpu.tile_counts == 0).any()
+    if name == "slow_heavy":
+        assert int(sb_cpu.slow_starts[-1]) > int(sb_cpu.kept) // 2
+
+
+@pytest.mark.parametrize("name", list(EXPANSION_CASES))
+def test_binning_kernels_match_plain_at_edges(cuda_device, name):
+    """The kernels behind ``slot_owner`` and ``place_stream`` against their
+    plain versions at ``binning_cases``' edges: zero-length segments,
+    starts past the pool, tiles clamped to mr - 1, kept < mr, ap >= mr_al,
+    mr = 0."""
+    c = expansion_case(name)
+    starts = torch.from_numpy(c["starts"])
+    np.testing.assert_array_equal(
+        binning.slot_owner_cuda(starts.to(cuda_device), c["p"],
+                                c["max_pairs"]).cpu().numpy(),
+        binning.slot_owner_plain(starts, c["p"], c["max_pairs"]).numpy())
+    names = ("keys_sorted", "slot_of_pos", "order", "tstart_pos",
+             "astart_all", "kept")
+    args = [torch.from_numpy(np.asarray(c[k])) for k in names]
+    tail = (c["mr"], c["mr_al"], c["rank_size"])
+    got = binning.place_stream_cuda(*(a.to(cuda_device) for a in args), *tail)
+    for g, w in zip(got, binning.place_stream_plain(*args, *tail)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_bin_stream_waits_for_nothing(cuda_device):
+    """``bin_stream`` and ``bin_gaussians`` on the card make no
+    synchronising call (no mask index, no read to the host)."""
+    from gs_localization_torch.raster.rasterize import (bin_gaussians_for,
+                                                        bin_stream_for)
+
+    _, prep, cam, cfg = _bin_prep("bench_640x480_sh3", cuda_device)
+    bin_stream_for(prep, cam, cfg)          # build and load the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bin_stream_for(prep, cam, cfg)
+        bin_gaussians_for(prep, cam, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_binning_launch_counts(cuda_device):
+    """Each ``bin_stream`` launches both binning kernels once, each
+    ``bin_gaussians`` the owner kernel once, and nothing else."""
+    from gs_localization_torch.raster.rasterize import (bin_gaussians_for,
+                                                        bin_stream_for)
+
+    _, prep, cam, cfg = _bin_prep("slow_heavy", cuda_device)
+    before = dict(gsl.LAUNCHES)
+    for _ in range(3):
+        bin_stream_for(prep, cam, cfg)
+    bin_gaussians_for(prep, cam, cfg)
+    delta = {k: gsl.LAUNCHES[k] - before[k] for k in before}
+    assert delta == {"stream_fwd": 0, "stream_bwd": 0, "pregathered_fwd": 0,
+                     "pregathered_bwd": 0, "bin_owner": 4, "bin_place": 3}

@@ -166,7 +166,8 @@ def test_reset_launches():
     gsl.LAUNCHES["pregathered_bwd"] += 1
     gsl.reset_launches()
     assert gsl.LAUNCHES == {"stream_fwd": 0, "stream_bwd": 0,
-                            "pregathered_fwd": 0, "pregathered_bwd": 0}
+                            "pregathered_fwd": 0, "pregathered_bwd": 0,
+                            "bin_owner": 0, "bin_place": 0}
 
 
 def test_scene_entry_points_default_to_cuda(no_cuda, tmp_path):
