@@ -22,9 +22,13 @@
    same bits are expected); and the binning kernels (``csrc/binning.cu``:
    the slow pool's slot owners and the stream's aligned placement) at the
    bench scene at 640x480 and 1024x576 at the benchmark's capacities
-   (2^21 pairs, fast_k 8, align 256), exactly, with ``bin_stream``'s
-   whole result on the card against the CPU, timed beside their plain
-   versions on the card (the scatter-max and ``cummax`` they replaced);
+   (2^21 pairs, fast_k 8, align 256: int32 sort keys) and at the
+   ``mip360-localize`` cell's map, camera and capacities (3 M Gaussians
+   at 1237x822, 2^24 pairs: int64 sort keys), exactly, with
+   ``bin_stream``'s whole result on the card against the CPU, timed
+   beside their plain versions on the card (the scatter-max and
+   ``cummax`` they replaced); and K1/K2 on that cell's stream (about
+   2,000 pairs a tile, a partial tile column), timed beside their bounds;
 4. checks the CUDA path against the plain CPU path on the small scene
    (pose-mode images and the camera-tangent gradient, on the stream pack
    and on the PairPack);
@@ -238,6 +242,10 @@ MAP_BA_ITERS, MAP_FINAL_BA_ITERS = 5, 12
 # LM steps of the one timed bundle_adjust_np call on each device (the
 # solver's default is 15); the time per LM step is printed beside it
 BA_TIMED_ITERS = 5
+# the scene-scale binning and K1/K2 cases: the mip360-localize cell's
+# configuration, its map drawn from this seed
+SCENE_CONFIG = "gsbench/configs/mip360-rgb.json"
+SCENE_SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_FP32 = 67e12     # FLOP/s on the CUDA cores, a fused multiply-add as 2
@@ -827,16 +835,39 @@ def blend_launches(launches: dict) -> dict:
     return {k: launches[k] for k in BLEND_KERNELS}
 
 
-def binning_kernels(g, dev) -> dict:
+def scene_case(dev):
+    """The ``mip360-localize`` cell's map (drawn from SCENE_SEED by the
+    benchmark's recipe, ``gsbench/configs/mip360-rgb.json``: 3,000,000
+    Gaussians at SH 1), its camera at the bench pose (1237x822, fx 1000:
+    a partial tile column) and its capacities (2^24 pairs). Returns (map,
+    camera, config)."""
+    from gs_localization_torch.core.camera import Camera
+    from gs_localization_torch.raster import RasterizerConfig
+    from gsbench import registry, scene
+
+    spec = json.loads((ROOT / SCENE_CONFIG).read_text())
+    g = registry.driver("localize")._program_map(
+        scene.make_map(spec["map"], SCENE_SEED, dev))
+    s = spec["sensor"]
+    cam = Camera.from_rt(np.eye(3), np.zeros(3), s["fx"], s["fy"],
+                         s["width"], s["height"], cx=s["cx"], cy=s["cy"],
+                         device=dev)
+    return g, cam, RasterizerConfig(**spec["raster"])
+
+
+def binning_kernels(g, dev, scene) -> dict:
     """``csrc/binning.cu``'s kernels at the bench map, 640x480 and
     1024x576, at the benchmark's capacities (``RasterizerConfig`` defaults
-    but ``max_pairs`` 2^21): ``bin_stream`` on the card against the CPU in
-    every field, each kernel on the inputs ``bin_stream`` gave it against
-    its plain version on the card and on the CPU (exact); the kernels'
-    device time per call and median single call, the plain versions' (the
-    scatter-max and ``cummax`` the kernels replaced, mask waits included)
-    and the whole ``bin_stream``'s single call, beside each kernel's byte
-    bound."""
+    but ``max_pairs`` 2^21: int32 sort keys), and at ``scene``
+    (``scene_case``: 4,056 tiles x 2^22 ranks pass int32, so the keys are
+    int64 and the placement is ``gsl_bin_place64``): ``bin_stream`` on the
+    card against the CPU in every field, each kernel on the inputs
+    ``bin_stream`` gave it against its plain version on the card and on
+    the CPU (exact); the kernels' device time per call and median single
+    call, the plain versions' (the scatter-max and ``cummax`` the kernels
+    replaced, mask waits included) and the whole ``bin_stream``'s single
+    call, beside each kernel's byte bound (the placement's counts the key's
+    own width)."""
     import torch
     from gs_localization_torch.core.camera import Camera
     from gs_localization_torch.raster import RasterizerConfig, binning
@@ -844,14 +875,16 @@ def binning_kernels(g, dev) -> dict:
                                                          preprocess)
     from gs_localization_torch.raster.rasterize import bin_stream_for
 
-    cfg = RasterizerConfig(max_pairs=1 << 21)
+    bench_cfg = RasterizerConfig(max_pairs=1 << 21)
+    cases = [(label, g, Camera.from_rt(np.eye(3), np.zeros(3), fx, fx, w, h,
+                                       device=dev), bench_cfg, torch.int32)
+             for label, (w, h, fx) in (("640x480", (640, 480, 585.0)),
+                                       ("1024x576", (1024, 576, 893.25)))]
+    cases.append(("scene 1237x822", *scene, torch.int64))
     result = {}
-    for label, (w, h, fx) in (("640x480", (640, 480, 585.0)),
-                              ("1024x576", (1024, 576, 893.25))):
-        cam = Camera.from_rt(np.eye(3), np.zeros(3), fx, fx, w, h,
-                             device=dev)
+    for label, gm, cam, cfg, key_dtype in cases:
         with torch.no_grad():
-            prep = preprocess(g, cam)
+            prep = preprocess(gm, cam)
         seen = {}
 
         def spy(name, fn):
@@ -874,11 +907,16 @@ def binning_kernels(g, dev) -> dict:
             if torch.is_tensor(a):
                 check(a.is_cuda and torch.equal(a.cpu(), b),
                       f"[binning {label}] bin_stream {f}: card != CPU")
+        del bins_cpu
         own, pl = seen["owner"], seen["place"]
+        check(pl[0].dtype == key_dtype,
+              f"[binning {label}] sort keys {pl[0].dtype}, not {key_dtype}")
         p, max_pairs = own[1], own[2]
         mr, kept = pl[6], int(pl[5])
+        key_bytes = pl[0].element_size()
         bound = {"owner": 4 * (max_pairs + p + 1) / PEAK_HBM * 1e3,
-                 "place": (16 * mr + 12 * kept) / PEAK_HBM * 1e3}
+                 "place": ((12 + key_bytes) * mr + 12 * kept) / PEAK_HBM
+                 * 1e3}
         row = {}
         for name, kern, plain, args in (
                 ("owner", binning.slot_owner_cuda, binning.slot_owner_plain,
@@ -892,6 +930,7 @@ def binning_kernels(g, dev) -> dict:
             check(all(torch.equal(x, y) and torch.equal(y.cpu(), z)
                       for x, y, z in zip(got, ref, ref_cpu)),
                   f"[binning {label}] {name} kernel != plain")
+            del got, ref, ref_cpu
             row[name] = dict(
                 device_ms=device_ms(lambda: kern(*args)),
                 ms=time_ms(lambda: kern(*args)),
@@ -900,12 +939,56 @@ def binning_kernels(g, dev) -> dict:
         row["bin_stream_ms"] = time_ms(lambda: bin_stream_for(prep, cam, cfg),
                                        N_PLAIN_TIMED)
         row["shape"] = dict(p=p, max_pairs=max_pairs, slots=int(pl[0].numel()),
-                            mr=mr, kept=kept, tiles=int(pl[3].numel()))
+                            mr=mr, kept=kept, tiles=int(pl[3].numel()),
+                            key=str(pl[0].dtype))
         print(f"[binning {label}] bin_stream card == CPU in every field; "
               f"owner and placement == plain (card and CPU); "
               f"{json.dumps(row)}")
         result[label] = row
+        del bins, prep, seen, own, pl
+        torch.cuda.empty_cache()
     return result
+
+
+def scene_blend(g, cam, cfg) -> dict:
+    """K1 and K2 against their plain versions on the ``mip360-localize``
+    cell's stream (``scene_case``: about 2,000 pairs a tile over 4,056
+    tiles, the last tile column 5 pixels wide), with each kernel's device
+    time per call and median single call beside its bound for this
+    stream's walked work."""
+    import torch
+    from gs_localization_torch.raster import stream_blend as sb
+    from gs_localization_torch.raster.pose_mode import (
+        _project_stream, build_stream_pair_pack)
+
+    grid_x = -(-cam.width // 16)
+    pack = build_stream_pair_pack(g, cam, cfg)
+    check(not bool(pack.overflow), "scene pack overflow")
+    with torch.no_grad():
+        stream_t = _project_stream(pack.params, cam)
+    counts = pack.walk_counts
+    shape = dict(slots=int(stream_t.shape[1]), kept_al=int(pack.kept_al),
+                 tiles=int(counts.shape[0]), max_walk=int(counts.max()),
+                 mean_walk=float(counts.float().mean()))
+    print(f"scene stream: {shape}")
+    err_k1, err_k2, (gacc, glogt, fwd) = compare_kernels(
+        "scene", stream_t, pack, grid_x, seed=9)
+    args = (stream_t, pack.tstart, pack.walk_counts)
+    wk = walked_work(stream_t, pack, fwd[2], grid_x)
+    row = {"shape": shape, "walked": {k: wk[k] for k in
+                                      ("chunks", "slots", "gated")}}
+    for name, fn, err, ops_s, byts in (
+            ("K1", lambda: sb.stream_blend_fwd_cuda(*args, grid_x, 16,
+                                                    CHUNK),
+             err_k1, wk["fwd_ops_s"], wk["fwd_bytes"]),
+            ("K2", lambda: sb.stream_blend_bwd_cuda(
+                *args, gacc, glogt, fwd[1], fwd[3], grid_x, 16, CHUNK),
+             err_k2, wk["bwd_ops_s"], wk["bwd_bytes"])):
+        row[name] = dict(max_abs_err=err, device_ms=device_ms(fn),
+                         ms=time_ms(fn),
+                         bound_ms=max(ops_s, byts / PEAK_HBM) * 1e3)
+    print(f"[scene] K1/K2 == plain; {json.dumps(row)}")
+    return row
 
 
 def time_ms(fn, n: int = N_TIMED) -> float:
@@ -2925,7 +3008,12 @@ def main() -> None:
 
     # ---- the binning kernels vs plain, bin_stream card vs CPU --------------
     with phase("binning kernels vs plain"):
-        bin_result = binning_kernels(g, dev)
+        scene = scene_case(dev)
+        bin_result = binning_kernels(g, dev, scene)
+    with phase("K1/K2 vs plain at scene scale"):
+        bin_result["scene K1/K2"] = scene_blend(*scene)
+        del scene
+        torch.cuda.empty_cache()
 
     # ---- K3/K4 vs plain --------------------------------------------------
     with phase("K3/K4 vs plain"):

@@ -34,7 +34,8 @@
 // (8 MB at 2^21 slots) and reads starts (at most ~1.6 MB, L2-resident): about
 // 3 us at 3.35 TB/s. The placement kernel reads a key (4 B) and a slot index
 // (8 B) a position and writes a rank, a Gaussian id and an aligned position
-// (4 B each): about 40 MB at 2^21 positions, about 12 us. Each thread's
+// (4 B each): about 40 MB at 2^21 positions, about 12 us (4 B more a position
+// with int64 keys). Each thread's
 // binary search reads only L1/L2-resident tables, and neighbouring threads
 // take the same path through them (their slots share a segment or a tile), so
 // a warp's search loads are broadcasts.
@@ -63,9 +64,11 @@ bin_owner_kernel(const int* __restrict__ starts, int p, int n,
 // Position i < mr: rank_of_pos[i] from its key; its aligned position ap = i +
 // the shift of the last tile whose clamped start is <= i; if i < *kept,
 // gid_of_apos[ap] = order[rank] (when ap < mr_al) and ap_by_slot[slot] = ap
-// (when slot < s).
+// (when slot < s). Keys are int32, or int64 where tiles x rank slots pass
+// int32 (binning.py's _key_dtype); the rank is the key's low bits either way.
+template <typename Key>
 __global__ void __launch_bounds__(kThreads)
-bin_place_kernel(const int* __restrict__ keys_sorted,
+bin_place_kernel(const Key* __restrict__ keys_sorted,
                  const long long* __restrict__ slot_of_pos,
                  const int* __restrict__ order,
                  const int* __restrict__ tstart_pos,
@@ -76,7 +79,7 @@ bin_place_kernel(const int* __restrict__ keys_sorted,
                  int* __restrict__ ap_by_slot) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= mr) return;
-  const int rank = min(keys_sorted[i] & rank_mask, p - 1);
+  const int rank = min((int)(keys_sorted[i] & (Key)rank_mask), p - 1);
   rank_of_pos[i] = rank;
   int lo = 0, hi = num_tiles;  // clamped start <= i for t < lo, > i from hi
   while (lo < hi) {
@@ -95,6 +98,22 @@ bin_place_kernel(const int* __restrict__ keys_sorted,
 }
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+template <typename Key>
+int launch_place(const Key* keys_sorted, const long long* slot_of_pos,
+                 const int* order, const int* tstart_pos,
+                 const int* astart_all, const int* kept, int mr, int mr_al,
+                 int s, int num_tiles, int rank_mask, int p, int* rank_of_pos,
+                 int* gid_of_apos, int* ap_by_slot, void* cuda_stream) {
+  if (mr == 0) return 0;
+  if (mr < 0 || num_tiles < 0 || p < 1) return (int)cudaErrorInvalidValue;
+  bin_place_kernel<Key>
+      <<<blocks_for(mr), kThreads, 0, (cudaStream_t)cuda_stream>>>(
+          keys_sorted, slot_of_pos, order, tstart_pos, astart_all, kept, mr,
+          mr_al, s, num_tiles, rank_mask, p, rank_of_pos, gid_of_apos,
+          ap_by_slot);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -122,12 +141,21 @@ int gsl_bin_place(const int* keys_sorted, const long long* slot_of_pos,
                   int s, int num_tiles, int rank_mask, int p,
                   int* rank_of_pos, int* gid_of_apos, int* ap_by_slot,
                   void* cuda_stream) {
-  if (mr == 0) return 0;
-  if (mr < 0 || num_tiles < 0 || p < 1) return (int)cudaErrorInvalidValue;
-  bin_place_kernel<<<blocks_for(mr), kThreads, 0, (cudaStream_t)cuda_stream>>>(
-      keys_sorted, slot_of_pos, order, tstart_pos, astart_all, kept, mr, mr_al,
-      s, num_tiles, rank_mask, p, rank_of_pos, gid_of_apos, ap_by_slot);
-  return (int)cudaGetLastError();
+  return launch_place(keys_sorted, slot_of_pos, order, tstart_pos,
+                      astart_all, kept, mr, mr_al, s, num_tiles, rank_mask, p,
+                      rank_of_pos, gid_of_apos, ap_by_slot, cuda_stream);
+}
+
+// gsl_bin_place with int64 keys.
+int gsl_bin_place64(const long long* keys_sorted,
+                    const long long* slot_of_pos, const int* order,
+                    const int* tstart_pos, const int* astart_all,
+                    const int* kept, int mr, int mr_al, int s, int num_tiles,
+                    int rank_mask, int p, int* rank_of_pos, int* gid_of_apos,
+                    int* ap_by_slot, void* cuda_stream) {
+  return launch_place(keys_sorted, slot_of_pos, order, tstart_pos,
+                      astart_all, kept, mr, mr_al, s, num_tiles, rank_mask, p,
+                      rank_of_pos, gid_of_apos, ap_by_slot, cuda_stream);
 }
 
 }  // extern "C"

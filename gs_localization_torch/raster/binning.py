@@ -11,9 +11,12 @@ Same pair semantics as the JAX package's ``bin_stream`` and
    more than fast_k tiles go through a slow pool of static capacity
    ``max_pairs``, whose slot j belongs to the largest rank whose segment
    starts at or before j (``slot_owner``).
-3. pairs sort once by a **packed int32 key** ``tile * R + depth_rank``
-   (R = next pow2 >= P); a per-tile opacity cull drops (Gaussian, tile)
-   pairs whose max alpha over the tile is below the blend's 1/255 gate.
+3. pairs sort once by a **packed key** ``tile * R + depth_rank`` (R =
+   next pow2 >= P), int32 as in the JAX package, or int64 where the tiles
+   times R pass int32 (a scene-scale map in a large frame: 3,000,000
+   Gaussians at 1237x822 need 2^22 x 4,056); a per-tile opacity cull drops
+   (Gaussian, tile) pairs whose max alpha over the tile is below the
+   blend's 1/255 gate.
 4. per-tile [start, count) by a searchsorted on the key boundaries, then
    either an aligned layout (stream: tile t's pairs live at [tstart[t],
    tstart[t]+count) with tstart a multiple of ``align`` so windows never
@@ -107,10 +110,11 @@ class Binning(NamedTuple):
     max_tile_count: torch.Tensor  # () int32 true max count (pre-clip)
 
 
-def _check_rank_size(num_tiles: int, rank_size: int) -> None:
-    assert (num_tiles + 1) * rank_size < 2**31, (
-        f"packed sort key overflow: {num_tiles} tiles x {rank_size} rank "
-        "slots")
+def _key_dtype(num_tiles: int, rank_size: int) -> torch.dtype:
+    """The packed sort key's dtype: int32 while every key and the sentinel
+    ``num_tiles * rank_size`` fit it, else int64 (the same integers)."""
+    return (torch.int32 if (num_tiles + 1) * rank_size < 2**31
+            else torch.int64)
 
 
 def _depth_order(prep: Preprocessed) -> torch.Tensor:
@@ -186,7 +190,8 @@ def place_stream_plain(keys_sorted: torch.Tensor, slot_of_pos: torch.Tensor,
     dev = keys_sorted.device
     p = order.shape[0]
     s = keys_sorted.shape[0]
-    rank_mr = torch.clamp_max(keys_sorted[:mr] & (rank_size - 1), p - 1)
+    rank_mr = torch.clamp_max(keys_sorted[:mr] & (rank_size - 1),
+                              p - 1).to(torch.int32)
     gid_mr = order[rank_mr.long()]
     shift = astart_all[:-1] - tstart_pos                 # (T,) >= 0
     pos_iota = _arange(mr, dev)
@@ -217,9 +222,10 @@ def _lib() -> ctypes.CDLL:
     lib = _kernels.load()
     lib.gsl_bin_owner.argtypes = [_P, _I, _I, _P, _P]
     lib.gsl_bin_owner.restype = _I
-    lib.gsl_bin_place.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _P, _P, _P, _P]
-    lib.gsl_bin_place.restype = _I
+    for fn in (lib.gsl_bin_place, lib.gsl_bin_place64):
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                       _P, _P]
+        fn.restype = _I
     return lib
 
 
@@ -247,8 +253,9 @@ def place_stream_cuda(keys_sorted: torch.Tensor, slot_of_pos: torch.Tensor,
                       astart_all: torch.Tensor, kept: torch.Tensor, mr: int,
                       mr_al: int, rank_size: int):
     """``place_stream_plain`` by the kernel ``bin_place`` (a binary search of
-    each position in the clamped tile starts); ``slot_of_pos`` is int64, as
-    ``torch.sort`` gives it."""
+    each position in the clamped tile starts); ``keys_sorted`` is int32 or
+    int64 (``_key_dtype``), ``slot_of_pos`` int64, as ``torch.sort`` gives
+    it."""
     dev = keys_sorted.device
     if not keys_sorted.is_cuda:
         raise ValueError(f"the CUDA stream placement takes CUDA tensors, got "
@@ -260,8 +267,10 @@ def place_stream_cuda(keys_sorted: torch.Tensor, slot_of_pos: torch.Tensor,
         raise ValueError("place_stream: no ranks to place")
     if not 0 <= mr <= s:
         raise ValueError(f"place_stream: mr {mr} outside [0, {s}]")
+    kd = keys_sorted.dtype if keys_sorted.dtype == torch.int64 \
+        else torch.int32
     for t, name, dtype, shape in (
-            (keys_sorted, "keys_sorted", torch.int32, (s,)),
+            (keys_sorted, "keys_sorted", kd, (s,)),
             (slot_of_pos, "slot_of_pos", torch.int64, (s,)),
             (order, "order", torch.int32, (p,)),
             (tstart_pos, "tstart_pos", torch.int32, (num_tiles,)),
@@ -273,8 +282,9 @@ def place_stream_cuda(keys_sorted: torch.Tensor, slot_of_pos: torch.Tensor,
     gid_of_apos = torch.full((mr_al,), p, **out)
     ap_by_slot = torch.full((s,), mr_al, **out)
     lib = _lib()
+    place = lib.gsl_bin_place64 if kd == torch.int64 else lib.gsl_bin_place
     with torch.cuda.device(dev):
-        rc = lib.gsl_bin_place(
+        rc = place(
             keys_sorted.data_ptr(), slot_of_pos.data_ptr(), order.data_ptr(),
             tstart_pos.data_ptr(), astart_all.data_ptr(), kept.data_ptr(),
             mr, mr_al, s, num_tiles, rank_size - 1, p, rank_of_pos.data_ptr(),
@@ -309,12 +319,13 @@ def place_stream(keys_sorted, slot_of_pos, order, tstart_pos, astart_all,
 def _emit_pair_keys(prep: Preprocessed, order: torch.Tensor, grid_x: int,
                     grid_y: int, rank_size: int, max_pairs: int,
                     fast_k: int, tile_size: int, tile_cull: bool):
-    """Packed int32 keys ``tile * rank_size + depth_rank`` (sentinel =
-    dead/culled), the slow-path segment bounds, the true slow-pair count
-    and the per-rank rect tile counts."""
+    """Packed keys ``tile * rank_size + depth_rank`` (sentinel =
+    dead/culled; ``_key_dtype``), the slow-path segment bounds, the true
+    slow-pair count and the per-rank rect tile counts."""
     dev = order.device
     p = prep.depths.shape[0]
     num_tiles = grid_x * grid_y
+    kd = _key_dtype(num_tiles, rank_size)
     ctab = _cull_table(prep)[order.long()]   # one packed row gather (P, 10)
     # a rect can never legitimately touch more than the whole grid
     touched_s = torch.clamp(prep.tiles_touched[order.long()], 0, num_tiles)
@@ -338,8 +349,8 @@ def _emit_pair_keys(prep: Preprocessed, order: torch.Tensor, grid_x: int,
                         tile_size)
         ok_fast = ok_fast & (qf <= ctab[:, 9:10])
     rank = _arange(p, dev)[:, None]
-    key_fast = torch.where(ok_fast, tile_fast * rank_size + rank,
-                           torch.full_like(tile_fast, sentinel))
+    key_fast = torch.where(ok_fast, tile_fast.to(kd) * rank_size + rank,
+                           torch.full_like(tile_fast, sentinel, dtype=kd))
 
     touched_slow = torch.where(is_fast, torch.zeros_like(touched_s),
                                touched_s)
@@ -349,14 +360,10 @@ def _emit_pair_keys(prep: Preprocessed, order: torch.Tensor, grid_x: int,
     pair_idx = _arange(max_pairs, dev)
     pair_ok = pair_idx < torch.clamp_max(total_slow, max_pairs)
     gsrt = slot_owner(starts, p, max_pairs)
-    # starts fit f32 exactly below 2^24 (one packed gather needs one dtype)
-    assert max_pairs < 2**24, "slow pool too large for the f32-packed table"
-    table = torch.cat([ctab[:, 0:2], w_s.to(torch.float32)[:, None],
-                       starts[:p].to(torch.float32)[:, None], ctab[:, 4:10]],
-                      dim=1)
-    rows = table[gsrt.long()]               # one packed row gather (MP, 10)
-    local = pair_idx - rows[:, 3].to(torch.int32)
-    w_g = rows[:, 2].to(torch.int32)
+    rows = ctab[gsrt.long()]                # one packed row gather (MP, 10)
+    local = pair_idx - starts[gsrt.long()]
+    w_g = torch.clamp_min(rows[:, 2].to(torch.int32)
+                          - rows[:, 0].to(torch.int32), 1)
     tx = rows[:, 0].to(torch.int32) + local % w_g
     ty = rows[:, 1].to(torch.int32) + torch.div(local, w_g,
                                                 rounding_mode="floor")
@@ -367,8 +374,8 @@ def _emit_pair_keys(prep: Preprocessed, order: torch.Tensor, grid_x: int,
                         rows[:, 8], tx.to(torch.float32),
                         ty.to(torch.float32), tile_size)
         ok_slow = ok_slow & (qs <= rows[:, 9])
-    key_slow = torch.where(ok_slow, tile_slow * rank_size + gsrt,
-                           torch.full_like(tile_slow, sentinel))
+    key_slow = torch.where(ok_slow, tile_slow.to(kd) * rank_size + gsrt,
+                           torch.full_like(tile_slow, sentinel, dtype=kd))
     keys = torch.cat([key_fast.reshape(-1), key_slow])
     return keys, starts, total_slow, touched_s
 
@@ -391,7 +398,6 @@ def bin_stream(
     p = prep.depths.shape[0]
     num_tiles = grid_x * grid_y
     rank_size = _next_pow2(max(p, 2))
-    _check_rank_size(num_tiles, rank_size)
     order = _depth_order(prep)
     keys, starts, total_slow, touched_s = _emit_pair_keys(
         prep, order, grid_x, grid_y, rank_size, max_pairs, fast_k,
@@ -403,7 +409,8 @@ def bin_stream(
     # differently from the JAX two-operand sort; no live slot reads it
     keys_sorted, slot_of_pos = torch.sort(keys, stable=True)
 
-    boundaries = _arange(num_tiles + 1, dev) * rank_size
+    boundaries = torch.arange(num_tiles + 1, device=dev,
+                              dtype=keys.dtype) * rank_size
     bounds = torch.searchsorted(keys_sorted, boundaries, right=False).to(
         torch.int32)
     kept_true = bounds[-1]                 # first sentinel position
@@ -462,14 +469,14 @@ def bin_gaussians(
     p = prep.depths.shape[0]
     num_tiles = grid_x * grid_y
     rank_size = _next_pow2(max(p, 2))
-    _check_rank_size(num_tiles, rank_size)
     order = _depth_order(prep)
     keys, _, total_slow, touched_s = _emit_pair_keys(
         prep, order, grid_x, grid_y, rank_size, max_pairs, fast_k,
         tile_size, tile_cull)
     keys_sorted = torch.sort(keys).values
 
-    boundaries = _arange(num_tiles + 1, dev) * rank_size
+    boundaries = torch.arange(num_tiles + 1, device=dev,
+                              dtype=keys.dtype) * rank_size
     bounds = torch.searchsorted(keys_sorted, boundaries, right=False).to(
         torch.int32)
     tstart = bounds[:-1]

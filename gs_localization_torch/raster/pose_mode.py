@@ -25,7 +25,7 @@ import torch
 
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams
-from ..utils.profiling import span
+from ..utils.profiling import count, note, span
 from . import stream_blend
 from .pallas_blend import blend_pregathered_pallas
 from .preprocess import build_cov3d, preprocess
@@ -202,7 +202,11 @@ def build_stream_pair_pack(
     the aligned pair stream. No per-tile cap. Spans ``rebin/preprocess``,
     ``rebin/bin`` (``bin_stream``: the sorts, the search, the binning
     kernels' segment expansions) and
-    ``rebin/gather`` (the pose-independent rows and ``assemble_stream``)."""
+    ``rebin/gather`` (the pose-independent rows and ``assemble_stream``);
+    counts the stream's columns, which every iteration's projection runs
+    over, as ``stream_slots`` and notes its live aligned length
+    ``kept_al`` (the device scalar, read once the profile is over) on the
+    enclosing span."""
     chunk = config.pallas_chunk
     with span("rebin/preprocess"):
         prep = preprocess(gaussians, camera, tile_size=config.tile_size,
@@ -213,6 +217,8 @@ def build_stream_pair_pack(
         pack = _param_pack(gaussians, prep, config)
         # dead positions: zero params -> det == 0 -> gated out of the blend
         params = stream_blend.assemble_stream(pack, sbins.gid_of_pos, chunk)
+    count("stream_slots", params.shape[1])
+    note(kept_al=sbins.kept_al)
     return StreamPairPack(
         params=params,
         tstart=sbins.tstart,
@@ -230,23 +236,29 @@ def render_pose_mode(
     bg: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (color (H,W,3), depth (H,W), alpha (H,W)) at the given pose, from
-    a ``StreamPairPack`` (K1/K2) or a ``PairPack`` (K3/K4)."""
+    a ``StreamPairPack`` (K1/K2) or a ``PairPack`` (K3/K4). Spans: the
+    per-pair projection's forward ``render/project``, the blend and the
+    images ``render/blend``."""
     ts = config.tile_size
     chunk = config.pallas_chunk
     grid_x = -(-camera.width // ts)
     if isinstance(pack, PairPack):
-        geom, rgbd = _project_pairs(pack.params, camera)
-        out = blend_pregathered_pallas(pack.counts, geom, rgbd, grid_x, ts,
-                                       chunk=chunk)
-        return composite(out, camera, ts, bg)
+        with span("render/project"):
+            geom, rgbd = _project_pairs(pack.params, camera)
+        with span("render/blend"):
+            out = blend_pregathered_pallas(pack.counts, geom, rgbd, grid_x,
+                                           ts, chunk=chunk)
+            return composite(out, camera, ts, bg)
     if not isinstance(pack, StreamPairPack):
         raise TypeError(f"expected a StreamPairPack or a PairPack, got "
                         f"{type(pack).__name__}")
     if pack.align != chunk:
         raise ValueError(f"pack aligned to {pack.align}, blend chunk {chunk}: "
                          "the backward needs align == chunk")
-    stream_t = _project_stream(pack.params, camera)
-    out = stream_blend.blend_stream_direct(
-        stream_t, pack.tstart, pack.walk_counts, pack.kept_al, grid_x, ts,
-        chunk=chunk)
-    return composite(out, camera, ts, bg)
+    with span("render/project"):
+        stream_t = _project_stream(pack.params, camera)
+    with span("render/blend"):
+        out = stream_blend.blend_stream_direct(
+            stream_t, pack.tstart, pack.walk_counts, pack.kept_al, grid_x,
+            ts, chunk=chunk)
+        return composite(out, camera, ts, bg)

@@ -41,6 +41,8 @@ waited for.
   ``count_wait(site, device, n=1)``: ``n`` operations that wait for a CUDA
   device though they read nothing, counted the same way.
 - ``note(**fields)``: add fields to the innermost open span's ``notes``.
+  A field may be a device tensor of one element, kept as it is (no wait)
+  and read to the host by ``records()``.
 - ``records()``: a snapshot ``{"spans": [...], "counters": {...}}``, spans
   in the order they opened. Call it once the device is synchronised: an
   event the stream has not reached reads ``stream_ms`` None. ``reset()``
@@ -189,8 +191,8 @@ def count_wait(site: str, device: torch.device, n: int = 1) -> None:
 
 
 def note(**fields) -> None:
-    """Add ``fields`` (host values) to the innermost open span's notes
-    while recording."""
+    """Add ``fields`` (host values, or one-element tensors read by
+    ``records()``) to the innermost open span's notes while recording."""
     if not _enabled():
         return
     stack = _REC.stack()
@@ -205,13 +207,18 @@ def _stream_ms(rec: dict) -> Optional[float]:
     return ev[0].elapsed_time(ev[1])
 
 
+def _host(v):
+    return v.item() if isinstance(v, torch.Tensor) else v
+
+
 def records() -> dict:
     """A snapshot of the spans and counters recorded since the last
     ``reset()`` (module docstring)."""
     spans = []
     for rec in list(_REC.spans):
         out = {k: v for k, v in rec.items() if k != "_events"}
-        out["counts"], out["notes"] = dict(rec["counts"]), dict(rec["notes"])
+        out["counts"] = dict(rec["counts"])
+        out["notes"] = {k: _host(v) for k, v in rec["notes"].items()}
         out["stream_ms"] = _stream_ms(rec)
         spans.append(out)
     return {"spans": spans, "counters": dict(_REC.counters)}

@@ -64,13 +64,20 @@ def test_slow_pool_overflow_flag(prep):
     _assert_equal(jb, tb)
 
 
-def test_packed_key_assert():
+def test_packed_key_assert(prep):
+    """Past int32's reach (40,000 tiles x 2^16 rank slots) the packed keys
+    are int64 and bin the same pairs as the int32 keys of the map without
+    a tail of culled Gaussians."""
     import torch
-    from gs_localization_torch.raster.preprocess import Preprocessed
-    p = 1 << 16
-    z = torch.zeros(p)
-    prep = Preprocessed(z, torch.zeros(p, 2), torch.zeros(p, 3),
-                        torch.zeros(p, 3), z, z.int(), torch.zeros(p, 4).int(),
-                        z.int(), z.bool())
-    with pytest.raises(AssertionError, match="packed sort key"):
-        tbin.bin_gaussians(prep, 200, 200, max_pairs=64, max_per_tile=64)
+    small = prep_to_torch(prep)
+    n, wide_p = small.depths.shape[0], 1 << 16
+    wide = type(small)(*(torch.cat([x, x.new_zeros((wide_p - n,)
+                                                   + x.shape[1:])])
+                         for x in small))
+    kw = dict(max_pairs=1 << 12, max_per_tile=64, fast_k=1)
+    a = tbin.bin_gaussians(small, 200, 200, **kw)
+    b = tbin.bin_gaussians(wide, 200, 200, **kw)
+    for name in FIELDS[1:]:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert int(a.tile_counts.sum()) > 100
+    assert torch.equal(a.tile_gid[a.tile_mask], b.tile_gid[b.tile_mask])

@@ -93,16 +93,37 @@ def test_windows_are_aligned_and_disjoint(wide):
     assert int(ends.max()) <= int(tb.kept_al)
 
 
-def test_packed_key_assert():
+def padded(prep, p: int):
+    """``prep`` followed by culled Gaussians up to ``p`` of them: more rank
+    slots, the same pairs."""
     import torch
-    from gs_localization_torch.raster.preprocess import Preprocessed
-    p = 1 << 16
-    z = torch.zeros(p)
-    prep = Preprocessed(z, torch.zeros(p, 2), torch.zeros(p, 3),
-                        torch.zeros(p, 3), z, z.int(), torch.zeros(p, 4).int(),
-                        z.int(), z.bool())
-    with pytest.raises(AssertionError, match="packed sort key"):
-        tbin.bin_stream(prep, 200, 200, max_pairs=64, max_render=64)
+    n = prep.depths.shape[0]
+    return type(prep)(*(torch.cat([x, x.new_zeros((p - n,) + x.shape[1:])])
+                        for x in prep))
+
+
+def test_packed_key_assert(slow_heavy):
+    """Past int32's reach (40,000 tiles x 2^16 rank slots) the packed keys
+    are int64 and bin the same pairs as the int32 keys of the map without
+    its culled tail."""
+    import torch
+    prep = prep_to_torch(slow_heavy[0])
+    n, wide_p = prep.depths.shape[0], 1 << 16
+    assert tbin._key_dtype(200 * 200, wide_p) == torch.int64
+    assert tbin._key_dtype(200 * 200, 128) == torch.int32
+    kw = dict(max_pairs=1 << 15, max_render=1 << 15, fast_k=1, align=32)
+    a = tbin.bin_stream(prep, 200, 200, **kw)
+    b = tbin.bin_stream(padded(prep, wide_p), 200, 200, **kw)
+    for name in ("tstart", "walk_counts", "tile_counts", "kept", "kept_al",
+                 "num_rendered", "overflow", "tile_overflow",
+                 "max_tile_count"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    kept = int(a.kept)
+    assert kept > 100 and not bool(a.overflow)
+    assert torch.equal(a.rank_of_pos[:kept], b.rank_of_pos[:kept])
+    # gaps and the tail hold each map's dead row
+    assert torch.equal(torch.where(a.gid_of_pos == n, wide_p, a.gid_of_pos),
+                       b.gid_of_pos)
 
 
 PLACE_ARGS = ("keys_sorted", "slot_of_pos", "order", "tstart_pos",

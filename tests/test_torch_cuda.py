@@ -1079,13 +1079,25 @@ BIN_CASES = {
     "empty_tiles": ("sparse", (96, 64, None),
                     dict(max_pairs=1 << 14, max_render=1 << 14, fast_k=1,
                          pallas_chunk=128, max_per_tile=128)),
+    # 2,304 tiles x 2^20 rank slots pass int32: int64 sort keys
+    "int64_keys": ("bench1_wide", (1024, 576, 893.25),
+                   dict(max_pairs=1 << 21, max_render=1 << 21)),
 }
 
 
 def _bin_scene(name: str) -> dict:
     """numpy Gaussians: the bench map (chip_smoke.py's recipe, 100,000
-    Gaussians) at SH 3 or 1, a slow-path-heavy scene of wide splats, or a
-    sparse one that leaves tiles empty."""
+    Gaussians) at SH 3 or 1, the SH-1 map followed by Gaussians behind the
+    camera up to 2^20 (more rank slots, the same pairs), a slow-path-heavy
+    scene of wide splats, or a sparse one that leaves tiles empty."""
+    if name == "bench1_wide":
+        arrays = _bin_scene("bench1")
+        n = (1 << 20) - arrays["xyz"].shape[0]
+        tail = {k: np.repeat(v[:1], n, 0) for k, v in arrays.items()
+                if k != "deg"}
+        tail["xyz"] = np.tile([[0.0, 0.0, -5.0]], (n, 1))
+        return {**{k: np.concatenate([arrays[k], v]) for k, v in tail.items()},
+                "deg": arrays["deg"]}
     if name.startswith("bench"):
         deg = int(name[-1])
         rng = np.random.default_rng(0)
@@ -1148,6 +1160,9 @@ def test_binning_cuda_matches_cpu(cuda_device, name):
         assert bool(sb_cpu.overflow)
     if name == "empty_tiles":
         assert (sb_cpu.tile_counts == 0).any()
+    if name == "int64_keys":
+        assert binning._key_dtype(64 * 36, 1 << 20) == torch.int64
+        assert int(sb_cpu.kept) > 100_000
     if name == "slow_heavy":
         assert int(sb_cpu.slow_starts[-1]) > int(sb_cpu.kept) // 2
 
@@ -1205,3 +1220,33 @@ def test_binning_launch_counts(cuda_device):
     delta = {k: gsl.LAUNCHES[k] - before[k] for k in before}
     assert delta == {"stream_fwd": 0, "stream_bwd": 0, "pregathered_fwd": 0,
                      "pregathered_bwd": 0, "bin_owner": 4, "bin_place": 3}
+
+
+def test_live_length_record_waits_for_nothing(cuda_device):
+    """Under the profiler a rebin notes its live aligned length as the
+    device scalar and counts its stream slots without a synchronising
+    call; read after the profile, they equal the pack's own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gs_localization_torch.utils import profiling
+
+    arrays = _scene(0, 500, 1.0)
+    g, cam = _on(arrays, cuda_device)
+    cfg = RasterizerConfig(max_pairs=1 << 14, max_render=1 << 14, fast_k=1,
+                           pallas_chunk=32)
+    build_stream_pair_pack(g, cam, cfg)         # build and load the kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        profiling.reset()
+        with profiling.span("refine/rebin"):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pack = build_stream_pair_pack(g, cam, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    rec = profiling.records()
+    (rebin,) = [s for s in rec["spans"] if s["name"] == "refine/rebin"]
+    assert rebin["notes"]["kept_al"] == int(pack.kept_al)
+    assert rebin["counts"]["stream_slots"] == pack.params.shape[1]
+    assert rec["counters"]["stream_slots"] == pack.params.shape[1]
