@@ -207,7 +207,7 @@ def _inputs():
     grid_x = -(-cs.W // 16)
     pack = build_stream_pair_pack(g, cam, cfg)
     with torch.no_grad():
-        stream = _project_stream(pack.params, cam)
+        stream = _project_stream(pack.params, pack.kept_al, cam)
     bins_b, geom_b, rgbd_b, _, _ = cs.bench_windows(g, cam, cfg)
     views = cs.training_views(cam)
     _, _, g0 = cs.initial_map(g, TrainPipelineConfig(), dev)

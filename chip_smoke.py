@@ -29,6 +29,12 @@
    beside their plain versions on the card (the scatter-max and
    ``cummax`` they replaced); and K1/K2 on that cell's stream (about
    2,000 pairs a tile, a partial tile column), timed beside their bounds;
+   and pose mode's projection P1 and its adjoint P2
+   (``csrc/pose_project.cu``) at the bench stream and that cell's stream
+   (about 7.9 M live positions of 17.8 M), at a pose off the pack's: P1
+   against ``_project_core`` (the same bits expected), P2 against the
+   plain adjoint and itself, timed beside their byte bounds, the plain
+   forward and its autograd backward, with their launches and occupancy;
 4. checks the CUDA path against the plain CPU path on the small scene
    (pose-mode images and the camera-tangent gradient, on the stream pack
    and on the PairPack);
@@ -282,6 +288,13 @@ TOL_BWD = (5e-3, 1e-2)
 FLIP_BWD = 1e-4           # a flipped pixel's share of its row's gradients
 TOL_IMG = 1e-5            # CUDA vs CPU images, small scene
 TOL_GRAD = (1e-3, 1e-3)   # camera-tangent gradient (atol, rtol)
+# P1 vs _project_core (the same ops in the same order; atol, rtol), P2 vs
+# the plain adjoint (float32 terms in another order, both summed in
+# float64; atol as a share of the largest gradient, rtol)
+TOL_PROJ = (1e-5, 1e-5)
+TOL_ADJ = (1e-6, 1e-4)
+# the pose of the projection phase: the pack's camera moved by this tangent
+PROJ_TAU = (0.01, -0.008, 0.012, 0.02, -0.015, 0.01)
 # stream vs pregathered layout on one map: the same pairs in the same order
 # per tile; gradients reach the Gaussians through different gather
 # adjoints (index_put with atomics, in another order)
@@ -295,7 +308,8 @@ TOL_SAME = 1e-6
 # the hand-written kernels in a profile, by kernel name
 HAND_KERNELS = ("stream_fwd_kernel", "stream_bwd_kernel",
                 "pregathered_fwd_kernel", "pregathered_bwd_kernel",
-                "tile_order_kernel")
+                "tile_order_kernel", "pose_project_fwd_kernel",
+                "pose_project_bwd_kernel", "pose_project_sum_kernel")
 
 ROOT = Path(__file__).resolve().parent
 TRAINABLE = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
@@ -965,7 +979,7 @@ def scene_blend(g, cam, cfg) -> dict:
     pack = build_stream_pair_pack(g, cam, cfg)
     check(not bool(pack.overflow), "scene pack overflow")
     with torch.no_grad():
-        stream_t = _project_stream(pack.params, cam)
+        stream_t = _project_stream(pack.params, pack.kept_al, cam)
     counts = pack.walk_counts
     shape = dict(slots=int(stream_t.shape[1]), kept_al=int(pack.kept_al),
                  tiles=int(counts.shape[0]), max_walk=int(counts.max()),
@@ -988,6 +1002,108 @@ def scene_blend(g, cam, cfg) -> dict:
                          ms=time_ms(fn),
                          bound_ms=max(ops_s, byts / PEAK_HBM) * 1e3)
     print(f"[scene] K1/K2 == plain; {json.dumps(row)}")
+    return row
+
+
+def pose_projection(label: str, pack, cam) -> dict:
+    """P1 and P2 (``csrc/pose_project.cu``) against their plain versions on
+    a stream pack, at the pack's camera moved by ``PROJ_TAU`` (as inside a
+    rebin window): P1 against ``_project_core`` at every live position
+    (valid equal off the near cull's rounding band), zero past
+    ``kept_al``; P2 against the plain adjoint (``_project_adjoint``), two
+    calls the same bits. Times each kernel (device ms per call and the
+    median single call) beside its byte bound and the plain versions: the
+    autograd-enabled ``_project_stream_plain`` forward and its autograd
+    backward (what P1/P2 replace on the card), and the plain adjoint; the
+    median single call of the whole CUDA path (``_project_stream``: the
+    camera vectors, ``Camera.projection`` included, and P1); the
+    launches of one forward and backward through ``render_pose_mode``'s
+    path, and each kernel's occupancy."""
+    import torch
+    import gs_localization_torch as gsl
+    from gs_localization_torch import _kernels
+    from gs_localization_torch.raster import pose_mode as pm
+
+    dev = pack.params.device
+    tau = torch.tensor(PROJ_TAU, device=dev, requires_grad=True)
+    cam_q = cam.with_delta(tau.detach())
+    pose, intr = pm.camera_vectors(cam_q)
+    args = (pack.params, pack.kept_al, pose, intr)
+    size = (cam.width, cam.height)
+    n, kept = pack.params.shape[1], int(pack.kept_al)
+    out = pm.pose_project_fwd_cuda(*args, *size, 0.2)
+    with torch.no_grad():
+        plain = pm._project_stream_plain(pack.params, cam_q)
+    rows = [r for r in range(16) if r != 6]
+    err_f = close_err(out[rows, :kept], plain[rows, :kept], *TOL_PROJ)
+    vz = plain[11, :kept]
+    clear = (vz - 0.2).abs() > 1e-5 * torch.clamp_min(vz.abs(), 1.0)
+    valid_off = int((out[6, :kept] != plain[6, :kept])[clear].sum())
+    valid_band = int((out[6, :kept] != plain[6, :kept])[~clear].sum())
+    same_bits = bool(torch.equal(out[:, :kept], plain[:, :kept]))
+    check(err_f[1] <= 1.0, f"[{label}] P1 != plain: {err_f}")
+    check(valid_off == 0, f"[{label}] P1 valid != plain at {valid_off}")
+    check(bool((out[:, kept:] == 0).all()), f"[{label}] P1 past kept_al")
+    del plain
+    gen = torch.Generator().manual_seed(5)
+    dstream = torch.randn(out.shape, generator=gen).to(dev)
+    dstream[:, kept:] = 0.0
+    g1 = pm.pose_project_bwd_cuda(*args, dstream, *size)
+    g2 = pm.pose_project_bwd_cuda(*args, dstream, *size)
+    want = pm._project_adjoint(pack.params, pack.kept_al, cam_q, dstream)
+    err_b = close_err(g1, want, TOL_ADJ[0] * float(want.abs().max()),
+                      TOL_ADJ[1])
+    check(bool(torch.equal(g1, g2)), f"[{label}] P2 calls differ")
+    check(err_b[1] <= 1.0, f"[{label}] P2 != plain adjoint: {err_b}")
+    torch.cuda.synchronize()
+    before = dict(gsl.LAUNCHES)
+    s = pm._project_stream(pack.params, pack.kept_al, cam.with_delta(tau))
+    (s * dstream).sum().backward()
+    torch.cuda.synchronize()
+    launches = {k: gsl.LAUNCHES[k] - before[k] for k in before
+                if gsl.LAUNCHES[k] != before[k]}
+    check(launches == {"pose_project_fwd": 1, "pose_project_bwd": 1},
+          f"[{label}] launches of one projection: {launches}")
+
+    def plain_fwd():
+        return pm._project_stream_plain(pack.params, cam.with_delta(tau))
+
+    s_plain = plain_fwd()
+    info = _kernels.kernel_info()
+    live_bytes = 4 * (14 + 16)
+    row = {
+        "shape": dict(slots=n, kept_al=kept),
+        "P1": dict(max_abs_err=err_f[0], same_bits=same_bits,
+                   valid_in_band=valid_band,
+                   device_ms=device_ms(lambda: pm.pose_project_fwd_cuda(
+                       *args, *size, 0.2)),
+                   ms=time_ms(lambda: pm.pose_project_fwd_cuda(
+                       *args, *size, 0.2)),
+                   bound_ms=(live_bytes * kept + 64 * (n - kept)) / PEAK_HBM
+                   * 1e3,
+                   plain_ms=time_ms(plain_fwd, N_PLAIN_TIMED),
+                   path_ms=time_ms(lambda: pm._project_stream(
+                       pack.params, pack.kept_al, cam.with_delta(tau))),
+                   occupancy=info["P1 pose_project_fwd"]),
+        "P2": dict(max_abs_err=err_b[0], max_abs=float(want.abs().max()),
+                   device_ms=device_ms(lambda: pm.pose_project_bwd_cuda(
+                       *args, dstream, *size)),
+                   ms=time_ms(lambda: pm.pose_project_bwd_cuda(
+                       *args, dstream, *size)),
+                   bound_ms=4 * 15 * kept / PEAK_HBM * 1e3,
+                   plain_ms=time_ms(lambda: torch.autograd.grad(
+                       s_plain, tau, dstream, retain_graph=True),
+                       N_PLAIN_TIMED),
+                   plain_adjoint_ms=time_ms(lambda: pm._project_adjoint(
+                       pack.params, pack.kept_al, cam_q, dstream),
+                       N_PLAIN_TIMED),
+                   occupancy=info["P2 pose_project_bwd"]),
+        "launches": launches}
+    print(f"[{label}] P1 == plain (bits equal on the live prefix: "
+          f"{same_bits}), P2 == plain adjoint, two P2 calls equal; "
+          f"{json.dumps(row)}")
+    del s_plain, out, dstream
+    torch.cuda.empty_cache()
     return row
 
 
@@ -2988,7 +3104,7 @@ def main() -> None:
         pack = build_stream_pair_pack(g, cam, cfg)
         check(not bool(pack.overflow), "bench pack overflow")
         with torch.no_grad():
-            stream_t = _project_stream(pack.params, cam)
+            stream_t = _project_stream(pack.params, pack.kept_al, cam)
         print(f"bench stream: {tuple(stream_t.shape)}, kept_al "
               f"{int(pack.kept_al)}, tiles {pack.tstart.shape[0]}, max walk "
               f"{int(pack.walk_counts.max())}")
@@ -3001,7 +3117,7 @@ def main() -> None:
         check(int(counts_s.max()) <= CHUNK and int((counts_s == 0).sum()) > 0,
               "small scene is not single-chunk with an empty tile")
         with torch.no_grad():
-            stream_s = _project_stream(pack_s.params, cam_s)
+            stream_s = _project_stream(pack_s.params, pack_s.kept_al, cam_s)
         e1, e2, _ = compare_kernels("small", stream_s, pack_s, -(-96 // 16),
                                     seed=1)
         err_k1, err_k2 = max(err_k1, e1), max(err_k2, e2)
@@ -3012,7 +3128,13 @@ def main() -> None:
         bin_result = binning_kernels(g, dev, scene)
     with phase("K1/K2 vs plain at scene scale"):
         bin_result["scene K1/K2"] = scene_blend(*scene)
-        del scene
+    with phase("pose projection vs plain"):
+        bin_result["bench P1/P2"] = pose_projection("bench", pack, cam)
+        g_m, cam_m, cfg_m = scene
+        pack_m = build_stream_pair_pack(g_m, cam_m, cfg_m)
+        check(not bool(pack_m.overflow), "scene pack overflow")
+        bin_result["scene P1/P2"] = pose_projection("scene", pack_m, cam_m)
+        del scene, g_m, pack_m
         torch.cuda.empty_cache()
 
     # ---- K3/K4 vs plain --------------------------------------------------

@@ -2,7 +2,8 @@
 
 Every ``csrc/*.cu`` (the stream blend K1/K2 and the pregathered blend
 K3/K4, which share ``csrc/blend_common.cuh``; binning's slot-owner and
-stream-placement kernels, ``csrc/binning.cu``) is compiled by ``nvcc`` at
+stream-placement kernels, ``csrc/binning.cu``; pose mode's projection P1
+and its adjoint P2, ``csrc/pose_project.cu``) is compiled by ``nvcc`` at
 first use, one process per source, all started together, and the objects
 are linked into one shared library with a plain C interface in
 ``build/torch_kernels/`` beside the package. The library's name carries a
@@ -126,15 +127,15 @@ def raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 KERNELS = ("K1 stream_fwd", "K2 stream_bwd", "K3 pregathered_fwd",
-           "K4 pregathered_bwd")
+           "K4 pregathered_bwd", "P1 pose_project_fwd", "P2 pose_project_bwd")
 
 
 def kernel_info() -> dict:
-    """For each of K1-K4, what the CUDA runtime reports: CTAs per SM at 256
-    threads (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per
-    thread, shared memory per CTA (bytes; all four use static shared memory
-    only, the same at every chunk) and local memory per thread (spills,
-    bytes)."""
+    """For each of K1-K4 and P1/P2 (P2: its first pass), what the CUDA
+    runtime reports: CTAs per SM at 256 threads
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
+    shared memory per CTA (bytes; all use static shared memory only, the
+    same at every chunk) and local memory per thread (spills, bytes)."""
     lib = load()
     info = {}
     for which, name in enumerate(KERNELS):

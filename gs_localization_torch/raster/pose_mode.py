@@ -9,8 +9,18 @@ pose moves by ~1e-3 per step, so the loop is restructured:
               stream (``StreamPairPack``; per-tile lists never truncated).
   per iter  : project each pair ELEMENTWISE under the current pose (the
               preprocess math) and blend the stream. The stream cotangent
-              chains through the elementwise projection to the 6-dim camera
-              tangent by autograd: no scatter in the backward.
+              reduces onto the 24 pose scalars (w2c rows 0-2, full_proj
+              rows 0, 1, 3) and autograd chains it to the 6-dim camera
+              tangent: no scatter in the backward.
+
+The stream's projection has two implementations, chosen by the device of
+the tensors: CUDA tensors launch the hand-written kernels of
+``csrc/pose_project.cu`` (P1 projects the positions below ``kept_al``,
+read on the device, and zeroes the rest; P2 is its analytic adjoint,
+reduced onto the pose in a fixed order), or raise; CPU tensors take the
+plain versions (``_project_core`` by autograd over every position, and
+``_project_adjoint``, the adjoint P2 computes, as PyTorch ops), which are
+the yardstick the kernels are held against on the card.
 
 The capped ``PairPack`` layout (``use_stream=False``) gathers the same
 params into per-tile (T, 16, max_per_tile) windows once per rebin, and
@@ -19,10 +29,15 @@ blends them with the pregathered kernels (K3/K4).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import LAUNCHES
+from .. import _kernels
+from .._kernels import check_tensor, raise_on
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams
 from ..utils.profiling import count, note, span
@@ -63,15 +78,48 @@ _C00, _C01, _C02, _C11, _C12, _C22 = 3, 4, 5, 6, 7, 8
 _POPA, _PVALID, _PR, _PG, _PB = 9, 10, 11, 12, 13
 
 
-def _project_core(camera: Camera, x, y, z, c00, c01, c02, c11, c12, c22,
-                  prep_valid, near_cull: float = 0.2):
-    """Elementwise per-pair projection under the current pose: the
-    per-Gaussian preprocess math on arrays of any shape, differentiable
-    w.r.t. the camera. Returns (px, py, conic_a, conic_b, conic_c, valid_f,
-    view_z)."""
+class _Terms(NamedTuple):
+    """``_project_core``'s intermediates that its outputs and its adjoint
+    read."""
+
+    vz: torch.Tensor
+    hx: torch.Tensor
+    hy: torch.Tensor
+    inv_w: torch.Tensor
+    rows: tuple            # (r0, r1, r2): the rows of R C, 3 arrays each
+    v00: torch.Tensor
+    v01: torch.Tensor
+    v02: torch.Tensor
+    v11: torch.Tensor
+    v12: torch.Tensor
+    v22: torch.Tensor
+    z_safe: torch.Tensor
+    ux: torch.Tensor       # vx / z_safe
+    uy: torch.Tensor
+    lim_x: torch.Tensor
+    lim_y: torch.Tensor
+    tx: torch.Tensor
+    ty: torch.Tensor
+    inv_z: torch.Tensor
+    inv_z2: torch.Tensor
+    j00: torch.Tensor
+    j02: torch.Tensor
+    j11: torch.Tensor
+    j12: torch.Tensor
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+    det: torch.Tensor
+    inv_det: torch.Tensor
+
+
+def _project_terms(camera: Camera, x, y, z, c00, c01, c02, c11, c12,
+                   c22) -> _Terms:
+    """The per-Gaussian preprocess math under the current pose, its
+    intermediates kept: ``_project_core``'s forward and what its adjoint
+    (``_project_adjoint``) recomputes."""
     w2c = camera.w2c
     fx, fy = camera.fx, camera.fy
-    width, height = camera.width, camera.height
     R, t = w2c[:3, :3], w2c[:3, 3]
     vx = R[0, 0] * x + R[0, 1] * y + R[0, 2] * z + t[0]
     vy = R[1, 0] * x + R[1, 1] * y + R[1, 2] * z + t[1]
@@ -83,8 +131,6 @@ def _project_core(camera: Camera, x, y, z, c00, c01, c02, c11, c12, c22,
     hy = FP[1, 0] * x + FP[1, 1] * y + FP[1, 2] * z + FP[1, 3]
     hw = FP[3, 0] * x + FP[3, 1] * y + FP[3, 2] * z + FP[3, 3]
     inv_w = 1.0 / (hw + 1e-7)
-    px = ((hx * inv_w + 1.0) * width - 1.0) * 0.5
-    py = ((hy * inv_w + 1.0) * height - 1.0) * 0.5
 
     # cov3d rows -> camera frame: Vc = R C R^T, needed entries only
     def rowmul(i):
@@ -105,8 +151,10 @@ def _project_core(camera: Camera, x, y, z, c00, c01, c02, c11, c12, c22,
     z_safe = torch.where(torch.abs(vz) < 1e-6, torch.full_like(vz, 1e-6), vz)
     lim_x = 1.3 * camera.tan_fovx
     lim_y = 1.3 * camera.tan_fovy
-    tx = torch.clamp(vx / z_safe, -lim_x, lim_x) * z_safe
-    ty = torch.clamp(vy / z_safe, -lim_y, lim_y) * z_safe
+    ux = vx / z_safe
+    uy = vy / z_safe
+    tx = torch.clamp(ux, -lim_x, lim_x) * z_safe
+    ty = torch.clamp(uy, -lim_y, lim_y) * z_safe
     inv_z = 1.0 / z_safe
     inv_z2 = inv_z * inv_z
     j00 = fx * inv_z
@@ -121,9 +169,109 @@ def _project_core(camera: Camera, x, y, z, c00, c01, c02, c11, c12, c22,
     det = a * c - b * b
     det_safe = torch.where(torch.abs(det) < 1e-12, torch.ones_like(det), det)
     inv_det = 1.0 / det_safe
-    valid = (prep_valid > 0.5) & (vz > near_cull) & (torch.abs(det) > 1e-12)
-    return (px, py, c * inv_det, -b * inv_det, a * inv_det,
-            valid.to(torch.float32), vz)
+    return _Terms(vz, hx, hy, inv_w, (r0, r1, r2), v00, v01, v02, v11, v12,
+                  v22, z_safe, ux, uy, lim_x, lim_y, tx, ty, inv_z, inv_z2,
+                  j00, j02, j11, j12, a, b, c, det, inv_det)
+
+
+def _project_core(camera: Camera, x, y, z, c00, c01, c02, c11, c12, c22,
+                  prep_valid, near_cull: float = 0.2):
+    """Elementwise per-pair projection under the current pose: the
+    per-Gaussian preprocess math on arrays of any shape, differentiable
+    w.r.t. the camera. Returns (px, py, conic_a, conic_b, conic_c, valid_f,
+    view_z)."""
+    q = _project_terms(camera, x, y, z, c00, c01, c02, c11, c12, c22)
+    px = ((q.hx * q.inv_w + 1.0) * camera.width - 1.0) * 0.5
+    py = ((q.hy * q.inv_w + 1.0) * camera.height - 1.0) * 0.5
+    valid = ((prep_valid > 0.5) & (q.vz > near_cull)
+             & (torch.abs(q.det) > 1e-12))
+    return (px, py, q.c * q.inv_det, -q.b * q.inv_det, q.a * q.inv_det,
+            valid.to(torch.float32), q.vz)
+
+
+def _project_adjoint(params: torch.Tensor, kept_al: torch.Tensor,
+                     camera: Camera, dstream: torch.Tensor) -> torch.Tensor:
+    """The plain version of P2 (``csrc/pose_project.cu``): the hand-derived
+    adjoint of ``_project_core`` over a (16, N) stream, from the stream
+    cotangent ``dstream`` (blend-layout rows; rows 0-4 and 11 carry a pose
+    gradient) at the positions below ``kept_al``, onto the (24,) camera
+    vector [w2c rows 0-2, full_proj rows 0, 1, 3]. Autograd's conventions:
+    the clamp passes the gradient only inside its limits (inclusive), each
+    ``torch.where`` routes it to the branch it took. Per-position terms in
+    the params' dtype, summed in float64."""
+    with torch.no_grad():
+        x, y, z = params[_PX], params[_PY], params[_PZ]
+        q = _project_terms(camera, x, y, z, params[_C00], params[_C01],
+                           params[_C02], params[_C11], params[_C12],
+                           params[_C22])
+        gpx, gpy, goa, gob, goc = dstream[0], dstream[1], dstream[2], \
+            dstream[3], dstream[4]
+        sx, sy = 0.5 * camera.width, 0.5 * camera.height
+        # px = ((hx inv_w + 1) W - 1) / 2, inv_w = 1 / (hw + 1e-7)
+        ghx = gpx * sx * q.inv_w
+        ghy = gpy * sy * q.inv_w
+        ginv_w = gpx * sx * q.hx + gpy * sy * q.hy
+        ghw = -ginv_w * q.inv_w * q.inv_w
+        # conic (c, -b, a) * inv_det; the determinant's guard routes nothing
+        ga, gb, gc = goc * q.inv_det, -gob * q.inv_det, goa * q.inv_det
+        ginv_det = goa * q.c - gob * q.b + goc * q.a
+        gdet = torch.where(torch.abs(q.det) < 1e-12, torch.zeros_like(q.det),
+                           -ginv_det * q.inv_det * q.inv_det)
+        ga = ga + gdet * q.c
+        gc = gc + gdet * q.a
+        gb = gb - 2.0 * gdet * q.b
+        # 2-D covariance J V J^T + 0.3 I
+        j00, j02, j11, j12 = q.j00, q.j02, q.j11, q.j12
+        gv00 = ga * j00 * j00
+        gv01 = gb * j00 * j11
+        gv02 = 2.0 * ga * j00 * j02 + gb * j00 * j12
+        gv11 = gc * j11 * j11
+        gv12 = gb * j02 * j11 + 2.0 * gc * j11 * j12
+        gv22 = ga * j02 * j02 + gb * j02 * j12 + gc * j12 * j12
+        gj00 = 2.0 * ga * (j00 * q.v00 + j02 * q.v02) \
+            + gb * (j11 * q.v01 + j12 * q.v02)
+        gj02 = 2.0 * ga * (j00 * q.v02 + j02 * q.v22) \
+            + gb * (j11 * q.v12 + j12 * q.v22)
+        gj11 = gb * (j00 * q.v01 + j02 * q.v12) \
+            + 2.0 * gc * (j11 * q.v11 + j12 * q.v12)
+        gj12 = gb * (j00 * q.v02 + j02 * q.v22) \
+            + 2.0 * gc * (j11 * q.v12 + j12 * q.v22)
+        # Jacobian: j00 = fx / z, j02 = -fx tx / z^2 (and y)
+        fx, fy = camera.fx, camera.fy
+        ginv_z2 = -(gj02 * fx * q.tx + gj12 * fy * q.ty)
+        ginv_z = gj00 * fx + gj11 * fy + 2.0 * ginv_z2 * q.inv_z
+        gtx = -gj02 * fx * q.inv_z2
+        gty = -gj12 * fy * q.inv_z2
+        # tx = clamp(vx / z_safe) z_safe
+        zero = torch.zeros_like(gtx)
+        gux = torch.where((q.ux >= -q.lim_x) & (q.ux <= q.lim_x),
+                          gtx * q.z_safe, zero)
+        guy = torch.where((q.uy >= -q.lim_y) & (q.uy <= q.lim_y),
+                          gty * q.z_safe, zero)
+        gzs = (-ginv_z * q.inv_z * q.inv_z
+               + gtx * torch.clamp(q.ux, -q.lim_x, q.lim_x)
+               + gty * torch.clamp(q.uy, -q.lim_y, q.lim_y)
+               - (gux * q.ux + guy * q.uy) / q.z_safe)
+        gv = (gux / q.z_safe, guy / q.z_safe,
+              dstream[11] + torch.where(torch.abs(q.vz) < 1e-6, zero, gzs))
+        # w2c: v_i = W_i . (x, y, z, 1) and V = R C R^T through r_i = R_i C:
+        # dV_ij / dR_k = [k == i] r_j + [k == j] r_i
+        S = ((2.0 * gv00, gv01, gv02), (gv01, 2.0 * gv11, gv12),
+             (gv02, gv12, 2.0 * gv22))
+        X = (x, y, z)
+        terms = []
+        for i in range(3):
+            terms += [gv[i] * X[k] + S[i][0] * q.rows[0][k]
+                      + S[i][1] * q.rows[1][k] + S[i][2] * q.rows[2][k]
+                      for k in range(3)]
+            terms.append(gv[i])
+        for gh in (ghx, ghy, ghw):
+            terms += [gh * X[k] for k in range(3)]
+            terms.append(gh)
+        terms = torch.stack(terms)                          # (24, N)
+        live = torch.arange(terms.shape[1], device=terms.device) < kept_al
+        terms = torch.where(live, terms, torch.zeros_like(terms))
+        return terms.sum(dim=1, dtype=torch.float64).to(params.dtype)
 
 
 def _project_pairs(params: torch.Tensor, camera: Camera,
@@ -142,11 +290,11 @@ def _project_pairs(params: torch.Tensor, camera: Camera,
     return geom, rgbd
 
 
-def _project_stream(params: torch.Tensor, camera: Camera,
-                    near_cull: float = 0.2) -> torch.Tensor:
-    """(16, N) stream params + pose -> (16, N) blend-layout stream rows
-    [x, y, a, b, c, opa, valid, pad, r, g, b, depth, 0, 0, 0, 0]. Dead
-    positions (all-zero params) project to valid == 0 (det == 0)."""
+def _project_stream_plain(params: torch.Tensor, camera: Camera,
+                          near_cull: float = 0.2) -> torch.Tensor:
+    """``_project_core`` over every column of a (16, N) stream, as PyTorch
+    ops (autograd gives the backward). Dead positions (all-zero params)
+    project to valid == 0 (prep_valid == 0)."""
     px, py, ia, ib, ic, validf, vz = _project_core(
         camera, params[_PX], params[_PY], params[_PZ],
         params[_C00], params[_C01], params[_C02],
@@ -157,6 +305,138 @@ def _project_stream(params: torch.Tensor, camera: Camera,
         [px, py, ia, ib, ic, params[_POPA], validf, zero,
          params[_PR], params[_PG], params[_PB], vz,
          zero, zero, zero, zero], dim=0)
+
+
+_GRAD = 24          # pose scalars: w2c rows 0-2, full_proj rows 0, 1, 3
+_THREADS = 256
+_BWD_BLOCKS = 1024  # P2's first-pass grid at most (its partials' rows)
+
+
+def camera_vectors(camera: Camera) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pose as the kernels take it, built by tensor ops on the camera's
+    device (no host read): (24,) [w2c rows 0-2, full_proj rows 0, 1, 3],
+    differentiable, and (4,) [fx, fy, tan_fovx, tan_fovy], constants."""
+    fp = camera.full_proj
+    pose = torch.cat([camera.w2c[:3], fp[0:2], fp[3:4]]).reshape(_GRAD)
+    intr = torch.stack([camera.fx, camera.fy, camera.tan_fovx,
+                        camera.tan_fovy])
+    return pose, intr
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _kernels.load()
+    lib.gsl_pose_project_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I,
+                                         ctypes.c_float, _P, _P]
+    lib.gsl_pose_project_fwd.restype = _I
+    lib.gsl_pose_project_bwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P,
+                                         _I, _P, _P]
+    lib.gsl_pose_project_bwd.restype = _I
+    return lib
+
+
+def _check_inputs(params, kept_al, pose, intr) -> None:
+    dev = params.device
+    if not params.is_cuda:
+        raise ValueError(f"the CUDA pose projection takes CUDA tensors, got "
+                         f"{dev}")
+    if params.dim() != 2 or params.shape[0] != 16:
+        raise ValueError(f"params: shape {tuple(params.shape)}, expected "
+                         f"(16, N)")
+    check_tensor(params, "params", torch.float32, params.shape, dev)
+    check_tensor(kept_al, "kept_al", torch.int32, (), dev)
+    check_tensor(pose, "pose", torch.float32, (_GRAD,), dev)
+    check_tensor(intr, "intr", torch.float32, (4,), dev)
+
+
+def pose_project_fwd_cuda(params, kept_al, pose, intr, width: int,
+                          height: int, near_cull: float) -> torch.Tensor:
+    """Launch P1: (16, N) params -> (16, N) blend-layout stream rows,
+    ``_project_core``'s at positions below ``kept_al``, zero past it."""
+    _check_inputs(params, kept_al, pose, intr)
+    n = params.shape[1]
+    out = torch.empty_like(params)
+    lib = _lib()
+    with torch.cuda.device(params.device):
+        rc = lib.gsl_pose_project_fwd(
+            params.data_ptr(), kept_al.data_ptr(), pose.data_ptr(),
+            intr.data_ptr(), n, width, height, near_cull, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, rc, "pose projection forward launch")
+    LAUNCHES["pose_project_fwd"] += 1
+    return out
+
+
+def pose_project_bwd_cuda(params, kept_al, pose, intr, dstream, width: int,
+                          height: int) -> torch.Tensor:
+    """Launch P2 (its two passes): the (24,) gradient of ``pose`` from the
+    stream cotangent ``dstream`` at the positions below ``kept_al``;
+    ``_project_adjoint`` is its plain version."""
+    _check_inputs(params, kept_al, pose, intr)
+    n = params.shape[1]
+    check_tensor(dstream, "dstream", torch.float32, params.shape,
+                 params.device)
+    blocks = max(1, min(-(-n // _THREADS), _BWD_BLOCKS))
+    partials = torch.empty((blocks, _GRAD), dtype=torch.float64,
+                           device=params.device)
+    grad = torch.empty(_GRAD, dtype=torch.float32, device=params.device)
+    lib = _lib()
+    with torch.cuda.device(params.device):
+        rc = lib.gsl_pose_project_bwd(
+            params.data_ptr(), kept_al.data_ptr(), pose.data_ptr(),
+            intr.data_ptr(), dstream.data_ptr(), n, width, height,
+            partials.data_ptr(), blocks, grad.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, rc, "pose projection backward launch")
+    LAUNCHES["pose_project_bwd"] += 1
+    return grad
+
+
+class _PoseProject(torch.autograd.Function):
+    """P1 forward, P2 backward: the gradient reaches the pose vector only
+    (the params are pose-independent and the intrinsics constant)."""
+
+    @staticmethod
+    def forward(ctx, params, kept_al, pose, intr, width, height, near_cull):
+        ctx.save_for_backward(params, kept_al, pose, intr)
+        ctx.size = (width, height)
+        return pose_project_fwd_cuda(params, kept_al, pose, intr, width,
+                                     height, near_cull)
+
+    @staticmethod
+    def backward(ctx, dstream):
+        params, kept_al, pose, intr = ctx.saved_tensors
+        grad = pose_project_bwd_cuda(params, kept_al, pose, intr,
+                                     dstream.contiguous(), *ctx.size)
+        return None, None, grad, None, None, None, None
+
+
+def _project_stream(params: torch.Tensor, kept_al: torch.Tensor,
+                    camera: Camera, near_cull: float = 0.2) -> torch.Tensor:
+    """(16, N) stream params + pose -> (16, N) blend-layout stream rows
+    [x, y, a, b, c, opa, valid, pad, r, g, b, depth, 0, 0, 0, 0].
+
+    CUDA tensors launch P1 (forward) and P2 (backward) of
+    ``csrc/pose_project.cu`` over the positions below ``kept_al``, zero
+    past it, or raise; CPU tensors take the plain version
+    (``_project_stream_plain``, every position). Counts ``project_kernel``
+    per CUDA call."""
+    if params.is_cuda:
+        pose, intr = camera_vectors(camera)
+        if intr.requires_grad:
+            raise ValueError("the CUDA pose projection differentiates the "
+                             "pose only; the intrinsics must not require "
+                             "grad")
+        count("project_kernel")
+        return _PoseProject.apply(params, kept_al, pose, intr, camera.width,
+                                  camera.height, near_cull)
+    if params.device.type == "cpu":
+        return _project_stream_plain(params, camera, near_cull)
+    raise ValueError(f"unsupported device {params.device}")
 
 
 def _param_pack(gaussians: GaussianParams, prep,
@@ -256,7 +536,7 @@ def render_pose_mode(
         raise ValueError(f"pack aligned to {pack.align}, blend chunk {chunk}: "
                          "the backward needs align == chunk")
     with span("render/project"):
-        stream_t = _project_stream(pack.params, camera)
+        stream_t = _project_stream(pack.params, pack.kept_al, camera)
     with span("render/blend"):
         out = stream_blend.blend_stream_direct(
             stream_t, pack.tstart, pack.walk_counts, pack.kept_al, grid_x,

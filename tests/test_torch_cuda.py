@@ -22,6 +22,7 @@ from gs_localization_torch.raster import binning
 from gs_localization_torch.raster import pallas_blend as pb
 from gs_localization_torch.raster import stream_blend as sb
 from gs_localization_torch.raster.constants import LOG_T_EPS
+from gs_localization_torch.raster import pose_mode as pm
 from gs_localization_torch.raster.pose_mode import (
     _project_pairs, _project_stream, build_pair_pack, build_stream_pair_pack,
     render_pose_mode)
@@ -98,7 +99,7 @@ def case(request, cuda_device):
     else:
         assert wc.max() > 2 * c["chunk"]
     with torch.no_grad():
-        stream = _project_stream(pack.params, cam)
+        stream = _project_stream(pack.params, pack.kept_al, cam)
     return dict(arrays=arrays, cfg=cfg, pack=pack, stream=stream,
                 chunk=c["chunk"], device=cuda_device,
                 pre=cfg.replace(use_stream=False, max_per_tile=c["cap"]))
@@ -168,6 +169,108 @@ def test_refine_pose_cuda_matches_cpu(case):
     assert res[0].num_iters == res[1].num_iters == 5
     torch.testing.assert_close(res[0].w2c.cpu(), res[1].w2c, atol=1e-4,
                                rtol=0)
+
+
+TAU = (0.01, -0.008, 0.012, 0.02, -0.015, 0.01)
+
+
+def test_pose_projection_kernels_match_plain(case):
+    """P1 against ``_project_core`` at every live position (valid equal
+    where no gate lies within rounding), zeros past ``kept_al``; P2 against
+    the plain adjoint, and two P2 calls the same bits."""
+    pack, dev = case["pack"], case["device"]
+    _, cam = _on(case["arrays"], dev)
+    cam = cam.with_delta(torch.tensor(TAU, device=dev))  # off the pack's pose
+    pose, intr = pm.camera_vectors(cam)
+    args = (pack.params, pack.kept_al, pose, intr)
+    before = dict(gsl.LAUNCHES)
+    out = pm.pose_project_fwd_cuda(*args, cam.width, cam.height, 0.2)
+    plain = pm._project_stream_plain(pack.params, cam)
+    assert gsl.LAUNCHES["pose_project_fwd"] == before["pose_project_fwd"] + 1
+    kept = int(pack.kept_al)
+    assert 0 < kept < out.shape[1]
+    rows = [r for r in range(16) if r != 6]
+    torch.testing.assert_close(out[rows, :kept], plain[rows, :kept],
+                               atol=1e-5, rtol=1e-5)
+    vz = plain[11, :kept]
+    clear = (vz - 0.2).abs() > 1e-5 * torch.clamp_min(vz.abs(), 1.0)
+    assert torch.equal(out[6, :kept][clear], plain[6, :kept][clear])
+    assert int(out[6, :kept].sum()) > 0
+    assert (out[:, kept:] == 0).all()
+
+    gen = torch.Generator().manual_seed(3)
+    dstream = torch.randn(out.shape, generator=gen).to(dev)
+    dstream[:, kept:] = 0.0        # as _StreamBlend.backward gives it
+    g1 = pm.pose_project_bwd_cuda(*args, dstream, cam.width, cam.height)
+    g2 = pm.pose_project_bwd_cuda(*args, dstream, cam.width, cam.height)
+    torch.cuda.synchronize()
+    assert gsl.LAUNCHES["pose_project_bwd"] == before["pose_project_bwd"] + 2
+    assert torch.equal(g1, g2)
+    want = pm._project_adjoint(pack.params, pack.kept_al, cam, dstream)
+    # float32 terms in another order (fma), both summed in float64
+    torch.testing.assert_close(g1, want, rtol=1e-4,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+def test_pose_projection_kernels_in_the_render_path(case):
+    """Through ``render_pose_mode`` the tangent's gradient equals the CPU
+    path's; each iteration launches P1 and P2 once; under the profiler
+    ``refine_pose`` counts one ``project_kernel`` per iteration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gs_localization_torch.utils import profiling
+
+    cfg = case["cfg"]
+    grads = []
+    for dev in (case["device"], torch.device("cpu")):
+        g, cam = _on(case["arrays"], dev)
+        pack = build_stream_pair_pack(g, cam, cfg)
+        before = dict(gsl.LAUNCHES)
+        for _ in range(2):
+            tau = torch.tensor(TAU, device=dev, requires_grad=True)
+            c, d, a = render_pose_mode(pack, cam.with_delta(tau), cfg)
+            (c.sum() + 0.1 * d.sum() + 0.01 * a.sum()).backward()
+        n = 2 if dev.type == "cuda" else 0
+        assert {k: gsl.LAUNCHES[k] - before[k]
+                for k in ("pose_project_fwd", "pose_project_bwd")} == \
+            {"pose_project_fwd": n, "pose_project_bwd": n}
+        grads.append(tau.grad.cpu())
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-3, rtol=1e-3)
+
+    g, cam = _on(case["arrays"], case["device"])
+    with torch.no_grad():
+        gt = rasterize(g, cam, cfg)
+    mask = torch.ones(gt.color.shape[:2], dtype=torch.bool,
+                      device=case["device"])
+    tcfg = TrackingConfig(num_iters=3, convergence=0.0, rebin_every=10,
+                          pose_mode=True)
+    before = dict(gsl.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        profiling.reset()
+        res = refine_pose(g, cam.with_delta(torch.tensor(
+            TAU, device=case["device"])), gt.color, mask, tcfg, cfg,
+            gt_depth=gt.depth)
+        torch.cuda.synchronize()
+    counters = profiling.records()["counters"]
+    assert res.num_iters == 3
+    assert counters["project_kernel"] == counters["refine_iters"] == 3
+    assert gsl.LAUNCHES["pose_project_fwd"] - before["pose_project_fwd"] == 3
+    assert gsl.LAUNCHES["pose_project_bwd"] - before["pose_project_bwd"] == 3
+
+
+def test_pose_projection_rejects_bad_cuda_inputs(case):
+    pack = case["pack"]
+    _, cam = _on(case["arrays"], case["device"])
+    pose, intr = pm.camera_vectors(cam)
+    with pytest.raises(TypeError, match="kept_al"):
+        pm.pose_project_fwd_cuda(pack.params, pack.kept_al.long(), pose,
+                                 intr, 96, 64, 0.2)
+    with pytest.raises(ValueError, match="on cpu"):
+        pm.pose_project_fwd_cuda(pack.params, pack.kept_al, pose.cpu(), intr,
+                                 96, 64, 0.2)
+    with pytest.raises(ValueError, match="intrinsics"):
+        _project_stream(pack.params, pack.kept_al,
+                        cam.replace(fx=cam.fx.clone().requires_grad_()))
 
 
 def test_wrappers_reject_bad_cuda_inputs(case):
@@ -1219,7 +1322,8 @@ def test_binning_launch_counts(cuda_device):
     bin_gaussians_for(prep, cam, cfg)
     delta = {k: gsl.LAUNCHES[k] - before[k] for k in before}
     assert delta == {"stream_fwd": 0, "stream_bwd": 0, "pregathered_fwd": 0,
-                     "pregathered_bwd": 0, "bin_owner": 4, "bin_place": 3}
+                     "pregathered_bwd": 0, "bin_owner": 4, "bin_place": 3,
+                     "pose_project_fwd": 0, "pose_project_bwd": 0}
 
 
 def test_live_length_record_waits_for_nothing(cuda_device):
