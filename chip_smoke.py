@@ -61,10 +61,7 @@
    fp32 and special-function issue rates): K1/K2 at the bench shapes,
    K3/K4 at the training windows (and, beside K1/K2, at the bench
    windows), with the card's SM clock read before and after;
-10. splits a refinement iteration and a training step into their parts and
-   profiles 20 of each (torch.profiler: the device's busy share and the
-   device time by kernel);
-11. scene runner: writes a raw 7-Scenes layout at 640x480 under
+10. scene runner: writes a raw 7-Scenes layout at 640x480 under
    ``build/`` (8 training frames in seq-01, 4 test frames in seq-02,
    colour and 16-bit millimetre depth PNGs rendered from the bench map,
    the split files, ``sparse_dslam/0`` with the true poses), stands in for
@@ -79,11 +76,11 @@
    on the initial map's pack at its first training view against the plain
    versions (``[scene-train] K1/K2 vs plain``); ms per training step on
    both layouts from that map, and ms per localization iteration;
-12. n_touched: ``count_touched`` on the card against the CPU at the card
+11. n_touched: ``count_touched`` on the card against the CPU at the card
    test's two scenes and the bench scene, and for each Gaussian whose
    count differs the deciding value of each differing pixel decision and
    its margin from the threshold it crossed, in float32 ULPs;
-13. few-shot training: ``train_map`` for 300 iterations on the stream
+12. few-shot training: ``train_map`` for 300 iterations on the stream
    layout (K1/K2) with a depth estimator (1 / (0.1 + luminance)) on the
    training scene of step 7: 21 pseudo cameras, a pseudo view every 20
    iterations inside (10, 290); the estimator's calls, the exact K1/K2
@@ -95,7 +92,7 @@
    4 training views against the mean single-view gradient; one viewer
    frame (a JPEG, rendered by K1); and whether the native image loader
    built, with its decodes against PIL;
-14. scene runner, all stages: a fresh copy of step 11's layout with no sfm
+13. scene runner, all stages: a fresh copy of step 10's layout with no sfm
    files, and one ``run_scene.main`` call ``--stage all --iterations 300``
    with its defaults (Harris, ``--use-depth``, the stream layout): the sfm
    stage builds the point model and the init poses on the card (at least
@@ -115,7 +112,7 @@
    ``tests/test_incremental_sfm.py`` card vs CPU (its bundle
    adjustments at ``MAP_BA_ITERS`` / ``MAP_FINAL_BA_ITERS`` LM steps); ms
    per ``bundle_adjust_np`` call of ``BA_TIMED_ITERS`` LM steps;
-15. the learned front end: random-weight checkpoints from a seed at the
+14. the learned front end: random-weight checkpoints from a seed at the
    official shapes, names and formats (``superpoint_v1.pth``,
    ``superglue_outdoor.pth`` with its residual branches at 0 and a sharp
    final projection so that pairs match, ``Pitts30K_struct.mat``,
@@ -126,7 +123,7 @@
    3, SuperGlue on two 1,024-keypoint sets at sinkhorn 5 and 50, NetVLAD
    at 640x480, DPT_Hybrid's and MiDaS's ``estimate_depth`` at 480x640) and
    its median ms per call; one ``run_scene.main`` call ``--stage all
-   --iterations 50 --weights-dir`` on a fresh layout of step 11's views:
+   --iterations 50 --weights-dir`` on a fresh layout of step 10's views:
    every "weights: ... enabled" line, an init pose and a method for every
    test image, the few-shot branch with one DPT call per pseudo step, the
    exact K1/K2 launches (K1 = steps + 2 x pseudo steps + held-out renders
@@ -134,7 +131,7 @@
    iterations, no K3/K4), a finite metrics.json, the sfm stage's time
    split; then the sfm stage again on the CPU, held against the card
    (keypoints, points, methods, init poses);
-16. the rest of hloc's learned confs: checkpoints from a seed at the
+15. the rest of hloc's learned confs: checkpoints from a seed at the
    official shapes, names and formats (``write_random``'s superpoint,
    d2net, r2d2, disk, dir, openibl and eigenplaces rows;
    ``superpoint_lightglue.pth`` with its residual branches at 0 and a
@@ -146,7 +143,7 @@
    median ms per call (r2d2, d2net-ss and disk at 640x480 with 5,000
    keypoints, lightglue on two 2,048-keypoint superpoint_max sets, loftr
    on two 640x480 views at 512 slots, dir, openibl and eigenplaces at
-   640x480); on a fresh layout of step 11's views, ``build_point_model``
+   640x480); on a fresh layout of step 10's views, ``build_point_model``
    and the localizers with superpoint_max + lightglue + dir (the sparse
    front end) and with loftr + eigenplaces (the dense one), on the card
    and again on the CPU (points within 2 %, the same methods, init poses
@@ -157,14 +154,14 @@
    launches of the three runs (K1 = steps + held-out renders + localize
    iterations, K2 = steps + localize iterations, no K3/K4) and finite
    metrics.json files; the phase's own time;
-17. the repaired faults: 20 stream ``train_step``s from the initial map run
+16. the repaired faults: 20 stream ``train_step``s from the initial map run
    twice from one state give bit-equal parameters (the slot-order pack
    gradient, no atomics), and the pack gradient's reduction beside
    ``index_add_`` on one stream step's grad stream (device ms of each,
    their difference); the scene phase times a stream step with either;
    the float64 yardstick lines at the training windows read K4 after its
    log T records;
-18. multi-device (one card), the bench scene at the training phase's
+17. multi-device (one card), the bench scene at the training phase's
    ``max_per_tile``: a world-size-1 NCCL group runs ``dp_train_grads`` (2
    cameras, stream), ``shard_queries_refine`` (4 queries, 50 iterations,
    pose mode), ``rasterize_tile_sharded`` (images and gradients),
@@ -184,7 +181,7 @@ Prints one JSON line of kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Exits non-zero at once when there is no CUDA device. ``--md-rank``
 (with ``--md-init``, ``--md-out`` and ``--md-max-per-tile``) runs one of
-step 18's gloo ranks; run with no arguments, the script needs one card.
+step 17's gloo ranks; run with no arguments, the script needs one card.
 Every process group meets through a store file of its own
 (``runtime.local_rendezvous``), never a port picked ahead of time.
 """
@@ -305,11 +302,6 @@ TOL_PLY = 1e-5            # a map reloaded from its PLY renders the same
 # K1/K2 vs K3/K4 on the same windows: one forward and one backward body
 # serve both layouts, so the same bits are expected
 TOL_SAME = 1e-6
-# the hand-written kernels in a profile, by kernel name
-HAND_KERNELS = ("stream_fwd_kernel", "stream_bwd_kernel",
-                "pregathered_fwd_kernel", "pregathered_bwd_kernel",
-                "tile_order_kernel", "pose_project_fwd_kernel",
-                "pose_project_bwd_kernel", "pose_project_sum_kernel")
 
 ROOT = Path(__file__).resolve().parent
 TRAINABLE = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
@@ -1142,53 +1134,6 @@ def device_ms(fn, n: int = N_TIMED) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def profile(label: str, fn, n_steps: int) -> None:
-    """``fn`` (``n_steps`` steps) under torch.profiler: the device's busy
-    share of the wall time, the device time by kernel name, and the share
-    of the hand-written kernels."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    fn()
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        print(f"profile {label}: the profiler saw no device activity; "
-              "device busy share not measured")
-        return
-    busy, (lo, hi) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > hi:
-            busy, lo, hi = busy + hi - lo, s, e
-        else:
-            hi = max(hi, e)
-    busy += hi - lo
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.end - e.time_range.start,
-                               n + 1)
-    hand = sum(us for name, (us, _) in by_name.items()
-               if any(k in name for k in HAND_KERNELS))
-    total = sum(us for us, _ in by_name.values())
-    print(f"profile {label} ({n_steps} steps, under the profiler): wall "
-          f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
-          f"({100 * busy / wall_us:.1f}%), {len(spans)} device activities; "
-          f"hand-written kernels {hand / 1e3:.3f} ms of {total / 1e3:.3f} ms "
-          f"device time ({100 * hand / max(total, 1e-9):.1f}%)")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"profile {label}:   {us / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
-
-
 def perturbed(cam, rng, rot: float, trans: float):
     """cam moved by a tangent of the given rotation (rad) and translation
     (m) magnitudes in random directions."""
@@ -1425,7 +1370,7 @@ def query_methods(log: str) -> dict:
 
 def all_stages(g, cam, cfg, dev) -> dict:
     """The scene runner's four stages in one call, the sfm stage on the
-    card (see the module docstring, step 14). Returns the call's launch
+    card (see the module docstring, step 13). Returns the call's launch
     counts."""
     import torch
     import gs_localization_torch as gsl
@@ -2225,7 +2170,7 @@ class DuckPCA:
 
 def hloc_confs(g, cam, cfg, dev) -> dict:
     """The rest of hloc's learned confs on the card (see the module
-    docstring, step 16). Returns the launch counts of its train and two
+    docstring, step 15). Returns the launch counts of its train and two
     localize runs."""
     import torch
     import gs_localization_torch as gsl
@@ -2375,11 +2320,6 @@ def hloc_confs(g, cam, cfg, dev) -> dict:
         print(f"[hloc] ms per call on the card (median of 5 after a "
               f"warm-up; {smi}): "
               + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
-        profile("lightglue 2,048 x 2,048",
-                lambda: mt[0](fg[0], fg[1], size, size), 1)
-        profile("loftr pair", lambda: dm[0](rgb[0], rgb[1]), 1)
-        dir_g = get_global_descriptor("dir", params=nets["dir"][0])
-        profile("dir ResNet101", lambda: dir_g(img_g[0]), 1)
 
         # 2. the sparse and dense front ends through the sfm stage's entry
         # points, on the card and again on the CPU
@@ -3050,8 +2990,7 @@ def main() -> None:
     from gs_localization_torch.core.camera import Camera
     from gs_localization_torch.data.scene import (
         CameraInfo, SceneInfo, compute_scene_extent)
-    from gs_localization_torch.loc import (
-        TrackingConfig, refine_pose, tracking_loss)
+    from gs_localization_torch.loc import TrackingConfig
     from gs_localization_torch.mapping import losses as mlosses
     from gs_localization_torch.mapping import train as mtrain
     from gs_localization_torch.pipelines.localize import (
@@ -3950,7 +3889,6 @@ def main() -> None:
                   f"pregathered (max_per_tile {pre_cfg_s.max_per_tile}, "
                   f"probed max count {mtc_s}) {step_pre:.3f} ms/step "
                   f"(median of 5 runs of 10 steps)")
-            profile("train stream", lambda: steps_on(rcfg_s, 20), 20)
         finally:
             shutil.rmtree(scene_dir, ignore_errors=True)
 
@@ -4024,52 +3962,6 @@ def main() -> None:
         print(f"training shapes (cap {geom_t.shape[2]}): K3 {shown('K3')}, "
               f"plain {k3p_ms:.3f}; K4 {shown('K4')}, plain {k4p_ms:.3f}")
         print(f"SM clock after timing ({clocks}): {smi_line(clocks)}")
-
-    # ---- where a refinement iteration's and a training step's time goes -----
-    with phase("breakdown and profiles"):
-        q0 = queries[0]
-        img0 = torch.tensor(q0.image, device=dev)
-        dep0 = torch.tensor(q0.depth, device=dev)
-        mask0 = torch.ones(img0.shape[:2], dtype=torch.bool, device=dev)
-        rebin_ms = time_ms(lambda: build_stream_pair_pack(g, q0.camera, cfg),
-                           5)
-        pack0 = build_stream_pair_pack(g, q0.camera, cfg)
-
-        def one_step():
-            tau = torch.zeros(6, device=dev, requires_grad=True)
-            ab = torch.zeros(2, device=dev, requires_grad=True)
-            c, d, a = render_pose_mode(pack0, q0.camera.with_delta(tau), cfg)
-            loss = tracking_loss(c, d, a, ab, img0, mask0, tcfg,
-                                 gt_depth=dep0)
-            torch.autograd.grad(loss, (tau, ab))
-
-        step_ms = time_ms(one_step, 10)
-        print(f"breakdown refine: rebin (preprocess + bin_stream + gather) "
-              f"{rebin_ms:.3f} ms, once per {tcfg.rebin_every} iterations; "
-              f"render + loss + backward {step_ms:.3f} ms, of which K1 "
-              f"{tk['K1'][0]:.3f} and K2 {tk['K2'][0]:.3f}")
-        profile("refine", lambda: refine_pose(
-            g, q0.camera, img0, mask0, tcfg.replace(num_iters=20), cfg,
-            gt_depth=dep0), 20)
-
-        mcfg = mtrain.MapTrainConfig(spatial_scale=scene.extent)
-        tstate = mtrain.init_training(trained, mcfg)
-        tviews = [(i.camera, torch.tensor(imgs[i.uid], device=dev),
-                   torch.tensor(deps[i.uid], device=dev))
-                  for i in scene.train_cameras]
-
-        def train_steps(n=20):
-            st = tstate
-            for k in range(n):
-                c, im, dp = tviews[k % len(tviews)]
-                st, _ = mtrain.train_step(st, c, im, mcfg, train_cfg,
-                                          gt_depth=dp)
-            return st
-
-        tstep_ms = time_ms(lambda: train_steps(1), 10)
-        print(f"breakdown train: one train_step {tstep_ms:.3f} ms at "
-              f"{trained.capacity} slots ({int(trained.num_live)} live)")
-        profile("train", train_steps, 20)
 
     def entry(name, source, replaces, n_launch, err, times, plain_ms, byts,
               ops_s):

@@ -39,18 +39,12 @@ networks hold their convolutions and matmuls to float32 (no TF32) with
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
 
 import torch
 
-__version__ = "0.1.0"
+from ._kernels import LAUNCHES, reset_launches  # noqa: F401
 
-# Launch counters of the hand-written kernels: each wrapper adds one where
-# it launches its kernel, and nowhere else.
-LAUNCHES: Dict[str, int] = {"stream_fwd": 0, "stream_bwd": 0,
-                            "pregathered_fwd": 0, "pregathered_bwd": 0,
-                            "bin_owner": 0, "bin_place": 0,
-                            "pose_project_fwd": 0, "pose_project_bwd": 0}
+__version__ = "0.1.0"
 
 
 def _init_cpu_vector_math() -> None:
@@ -69,11 +63,6 @@ def _init_cpu_vector_math() -> None:
 
 
 _init_cpu_vector_math()
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -1,15 +1,32 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build, bind and launch the hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` (the stream blend K1/K2 and the pregathered blend
 K3/K4, which share ``csrc/blend_common.cuh``; binning's slot-owner and
-stream-placement kernels, ``csrc/binning.cu``; pose mode's projection P1
-and its adjoint P2, ``csrc/pose_project.cu``) is compiled by ``nvcc`` at
+stream-placement kernels B1/B2, ``csrc/binning.cu``; pose mode's projection
+P1 and its adjoint P2, ``csrc/pose_project.cu``) is compiled by ``nvcc`` at
 first use, one process per source, all started together, and the objects
 are linked into one shared library with a plain C interface in
 ``build/torch_kernels/`` beside the package. The library's name carries a
 hash of every source and header and of the flags. It is loaded with
 ``ctypes``. Nothing here runs at import time, so the package imports on a
 machine with neither ``nvcc`` nor a GPU.
+
+``TABLE`` holds one entry per C entry point: its C symbol, its argument
+kinds, how a failed launch is described, the ``LAUNCHES`` key it is
+counted under and, for a kernel whose occupancy ``kernel_info`` reports,
+its label and the info function of its own ``.cu``. ``load`` binds every
+symbol from it once; ``launch`` is the one place a kernel is called from
+Python. The module that owns a kernel keeps its input checks, its output
+allocation, the choice between the kernel and its plain version, and its
+autograd ``Function``.
+
+Adding a kernel: write its ``.cu`` with its C entry point in an ``extern
+"C"`` block (the last parameter ``void* cuda_stream``, an ``int`` return
+that is a ``cudaError_t``) and, to report its occupancy, an ``int
+gsl_<name>_info(int which, int* out)`` there too; add its entry to
+``TABLE``; call ``launch`` from its module's wrapper; add its tests. Nothing
+else names it: ``LAUNCHES`` takes its key from the table, and
+``tests/test_torch_kernel_abi.py`` holds the table to the sources.
 """
 
 from __future__ import annotations
@@ -22,7 +39,9 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, NamedTuple, Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -92,17 +111,103 @@ def build() -> Optional[float]:
     return time.perf_counter() - t0
 
 
+class Entry(NamedTuple):
+    """A C entry point. ``args`` holds one kind per parameter before the
+    trailing ``cudaStream_t``: ``p`` a pointer (a tensor's ``data_ptr``),
+    ``i`` an ``int``, ``f`` a ``float``. ``counter`` is the ``LAUNCHES`` key
+    when it is not the entry's own name. ``info`` is (label, info symbol,
+    index) for a kernel that ``kernel_info`` reports."""
+    symbol: str
+    args: str
+    what: str
+    counter: Optional[str] = None
+    info: Optional[tuple] = None
+
+
+TABLE: Dict[str, Entry] = {
+    "stream_fwd": Entry("gsl_stream_fwd", "ppppiiiippppp",
+                        "stream blend forward launch",
+                        info=("K1", "gsl_stream_info", 0)),
+    "stream_bwd": Entry("gsl_stream_bwd", "ppppiiiipppppp",
+                        "stream blend backward launch",
+                        info=("K2", "gsl_stream_info", 1)),
+    "pregathered_fwd": Entry("gsl_pregathered_fwd", "ppppiiiiippppp",
+                             "pregathered blend forward launch",
+                             info=("K3", "gsl_pregathered_info", 0)),
+    "pregathered_bwd": Entry("gsl_pregathered_bwd", "ppppiiiiippppppp",
+                             "pregathered blend backward launch",
+                             info=("K4", "gsl_pregathered_info", 1)),
+    "bin_owner": Entry("gsl_bin_owner", "piip", "slot owner launch"),
+    "bin_place": Entry("gsl_bin_place", "ppppppiiiiiippp",
+                       "stream placement launch"),
+    # bin_place on int64 sort keys
+    "bin_place64": Entry("gsl_bin_place64", "ppppppiiiiiippp",
+                         "stream placement launch", counter="bin_place"),
+    "pose_project_fwd": Entry("gsl_pose_project_fwd", "ppppiiifp",
+                              "pose projection forward launch",
+                              info=("P1", "gsl_pose_project_info", 0)),
+    # P2: its first pass is the one kernel_info reports
+    "pose_project_bwd": Entry("gsl_pose_project_bwd", "pppppiiipip",
+                              "pose projection backward launch",
+                              info=("P2", "gsl_pose_project_info", 1)),
+}
+
+# Launch counters of the hand-written kernels: ``launch`` adds one per
+# launch, and nothing else does.
+LAUNCHES: Dict[str, int] = dict.fromkeys(
+    (e.counter or name for name, e in TABLE.items()), 0)
+
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+# name -> (function, the pointer arguments' positions, the argument count,
+# what, counter)
+_BOUND: Dict[str, tuple] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
 def load() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed, with every entry
+    point of ``TABLE`` and the helpers bound."""
     global _LIB
     if _LIB is None:
         build()
-        _LIB = ctypes.CDLL(str(library_path()))
-        _LIB.gsl_error_string.argtypes = [ctypes.c_int]
-        _LIB.gsl_error_string.restype = ctypes.c_char_p
-        _LIB.gsl_kernel_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        _LIB.gsl_kernel_info.restype = ctypes.c_int
+        lib = ctypes.CDLL(str(library_path()))
+        lib.gsl_error_string.argtypes = [ctypes.c_int]
+        lib.gsl_error_string.restype = ctypes.c_char_p
+        for name, e in TABLE.items():
+            fn = getattr(lib, e.symbol)
+            fn.argtypes = [_CTYPES[k] for k in e.args] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _BOUND[name] = (fn, [i for i, k in enumerate(e.args) if k == "p"],
+                            len(e.args), e.what, e.counter or name)
+            if e.info:
+                info = getattr(lib, e.info[1])
+                info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+                info.restype = ctypes.c_int
+        _LIB = lib
     return _LIB
+
+
+def launch(name: str, device, *args) -> None:
+    """Call ``TABLE[name]``'s entry point on ``device``'s current stream:
+    tensors as their ``data_ptr()``, ints and floats as they are. Raises
+    ``RuntimeError`` on a nonzero return; counts the launch in
+    ``LAUNCHES``."""
+    if _LIB is None:
+        load()
+    fn, ptrs, n, what, counter = _BOUND[name]
+    if len(args) != n:
+        raise TypeError(f"{name} takes {n} arguments, got {len(args)}")
+    args = list(args)
+    for i in ptrs:
+        args[i] = args[i].data_ptr()
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    raise_on(rc, what)
+    LAUNCHES[counter] += 1
 
 
 def check_tensor(t, name: str, dtype, shape, device) -> None:
@@ -119,31 +224,27 @@ def check_tensor(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+def raise_on(rc: int, what: str) -> None:
+    """Raise if a call returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} "
-                           f"({lib.gsl_error_string(rc).decode()})")
-
-
-KERNELS = ("K1 stream_fwd", "K2 stream_bwd", "K3 pregathered_fwd",
-           "K4 pregathered_bwd", "P1 pose_project_fwd", "P2 pose_project_bwd")
+                           f"({load().gsl_error_string(rc).decode()})")
 
 
 def kernel_info() -> dict:
-    """For each of K1-K4 and P1/P2 (P2: its first pass), what the CUDA
-    runtime reports: CTAs per SM at 256 threads
+    """For each kernel of ``TABLE`` with an ``info`` (K1-K4, P1 and P2's
+    first pass), what the CUDA runtime reports: CTAs per SM at 256 threads
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
     shared memory per CTA (bytes; all use static shared memory only, the
     same at every chunk) and local memory per thread (spills, bytes)."""
     lib = load()
     info = {}
-    for which, name in enumerate(KERNELS):
-        out = (ctypes.c_int * 4)()
-        rc = lib.gsl_kernel_info(which, out)
-        if rc != 0:
-            raise RuntimeError(f"kernel info of {name}: CUDA error {rc} "
-                               f"({lib.gsl_error_string(rc).decode()})")
-        info[name] = dict(ctas_per_sm=out[0], regs=out[1], smem=out[2],
-                          local=out[3])
+    for name, e in TABLE.items():
+        if e.info:
+            label, symbol, which = e.info
+            out = (ctypes.c_int * 4)()
+            raise_on(getattr(lib, symbol)(which, out),
+                     f"kernel info of {label} {name}")
+            info[f"{label} {name}"] = dict(ctas_per_sm=out[0], regs=out[1],
+                                           smem=out[2], local=out[3])
     return info

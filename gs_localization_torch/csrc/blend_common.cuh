@@ -541,7 +541,4 @@ inline int kernel_info(Kernel kernel, int* out) {
   return 0;
 }
 
-// K1/K2's kernel_info (stream_blend.cu): which 0 = K1, 1 = K2.
-int stream_kernel_info(int which, int* out);
-
 }  // namespace gsl

@@ -207,26 +207,12 @@ int gsl_pregathered_bwd(const int* counts, const int* order,
   return (int)cudaGetLastError();
 }
 
-// pose_project.cu's kernel_info: which 0 = P1, 1 = P2's first pass.
-int gsl_pose_project_info(int which, int* out);
-
 // CTAs per SM, registers per thread, shared memory per CTA and local bytes
-// per thread of K1-K4 (which = 0..3) and P1/P2 (4, 5), into out[0..3].
-int gsl_kernel_info(int which, int* out) {
-  switch (which) {
-    case 0:
-    case 1:
-      return stream_kernel_info(which, out);
-    case 2:
-      return kernel_info(pregathered_fwd_kernel, out);
-    case 3:
-      return kernel_info(pregathered_bwd_kernel, out);
-    case 4:
-    case 5:
-      return gsl_pose_project_info(which - 4, out);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+// per thread of K3 (which = 0) or K4 (1), into out[0..3].
+int gsl_pregathered_info(int which, int* out) {
+  if (which == 0) return kernel_info(pregathered_fwd_kernel, out);
+  if (which == 1) return kernel_info(pregathered_bwd_kernel, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

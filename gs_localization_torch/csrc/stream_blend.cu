@@ -126,11 +126,6 @@ stream_bwd_kernel(const int* __restrict__ tstart, const int* __restrict__ wcount
 
 }  // namespace
 
-int gsl::stream_kernel_info(int which, int* out) {
-  if (which == 0) return kernel_info(stream_fwd_kernel, out);
-  return kernel_info(stream_bwd_kernel, out);
-}
-
 extern "C" {
 
 // `order` (num_tiles ints) receives the tile order the kernel ran in,
@@ -168,6 +163,14 @@ int gsl_stream_bwd(const int* tstart, const int* wcount, const int* order,
       tstart, wcount, order, num_tiles, stream, mrpad, grid_x, chunk, gacc,
       glogt, logt, last, chunk_logt, dstream);
   return (int)cudaGetLastError();
+}
+
+// CTAs per SM, registers per thread, shared memory per CTA and local bytes
+// per thread of K1 (which = 0) or K2 (1), into out[0..3].
+int gsl_stream_info(int which, int* out) {
+  if (which == 0) return kernel_info(stream_fwd_kernel, out);
+  if (which == 1) return kernel_info(stream_bwd_kernel, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* gsl_error_string(int code) {

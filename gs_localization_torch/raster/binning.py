@@ -38,15 +38,11 @@ are the yardstick the kernels are held against on the card.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
-from .. import LAUNCHES
-from .. import _kernels
-from .._kernels import check_tensor, raise_on
+from .._kernels import check_tensor, launch
 from .constants import ALPHA_MIN as _ALPHA_MIN
 from .preprocess import Preprocessed
 
@@ -213,22 +209,6 @@ def place_stream_plain(keys_sorted: torch.Tensor, slot_of_pos: torch.Tensor,
     return rank_mr, gid_of_apos, ap_by_slot
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _kernels.load()
-    lib.gsl_bin_owner.argtypes = [_P, _I, _I, _P, _P]
-    lib.gsl_bin_owner.restype = _I
-    for fn in (lib.gsl_bin_place, lib.gsl_bin_place64):
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                       _P, _P]
-        fn.restype = _I
-    return lib
-
-
 def slot_owner_cuda(starts: torch.Tensor, p: int,
                     max_pairs: int) -> torch.Tensor:
     """``slot_owner_plain`` by the kernel ``bin_owner`` (a binary search of
@@ -238,13 +218,7 @@ def slot_owner_cuda(starts: torch.Tensor, p: int,
         raise ValueError(f"the CUDA slot owner takes CUDA tensors, got {dev}")
     check_tensor(starts, "starts", torch.int32, (p + 1,), dev)
     owner = torch.empty(max_pairs, dtype=torch.int32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        rc = lib.gsl_bin_owner(starts.data_ptr(), p, max_pairs,
-                               owner.data_ptr(),
-                               torch.cuda.current_stream().cuda_stream)
-    raise_on(lib, rc, "slot owner launch")
-    LAUNCHES["bin_owner"] += 1
+    launch("bin_owner", dev, starts, p, max_pairs, owner)
     return owner
 
 
@@ -281,17 +255,10 @@ def place_stream_cuda(keys_sorted: torch.Tensor, slot_of_pos: torch.Tensor,
     rank_of_pos = torch.empty(mr, **out)
     gid_of_apos = torch.full((mr_al,), p, **out)
     ap_by_slot = torch.full((s,), mr_al, **out)
-    lib = _lib()
-    place = lib.gsl_bin_place64 if kd == torch.int64 else lib.gsl_bin_place
-    with torch.cuda.device(dev):
-        rc = place(
-            keys_sorted.data_ptr(), slot_of_pos.data_ptr(), order.data_ptr(),
-            tstart_pos.data_ptr(), astart_all.data_ptr(), kept.data_ptr(),
-            mr, mr_al, s, num_tiles, rank_size - 1, p, rank_of_pos.data_ptr(),
-            gid_of_apos.data_ptr(), ap_by_slot.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    raise_on(lib, rc, "stream placement launch")
-    LAUNCHES["bin_place"] += 1
+    launch("bin_place64" if kd == torch.int64 else "bin_place", dev,
+           keys_sorted, slot_of_pos, order, tstart_pos, astart_all, kept, mr,
+           mr_al, s, num_tiles, rank_size - 1, p, rank_of_pos, gid_of_apos,
+           ap_by_slot)
     return rank_of_pos, gid_of_apos, ap_by_slot
 
 

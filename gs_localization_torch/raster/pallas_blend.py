@@ -30,17 +30,12 @@ of that gather) and pose mode's ``PairPack`` (``blend_pregathered_pallas``).
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from .. import LAUNCHES
-from .. import _kernels
+from .._kernels import check_tensor, launch
 from .blend import TileBlendOut
-from .stream_blend import (BlendWalk, _blocks, _check, _check_walk,
-                           _descending, _fwd_block, _new_walk, _pixel_coords,
-                           _raise_on, _tile_out)
+from .stream_blend import (BlendWalk, _blocks, _check_walk, _descending,
+                           _fwd_block, _new_walk, _pixel_coords, _tile_out)
 
 _GEOM_ROWS = 8
 _RGBD_ROWS = 4
@@ -134,22 +129,6 @@ def pregathered_blend_bwd_plain(counts: torch.Tensor, geom: torch.Tensor,
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _kernels.load()
-    lib.gsl_pregathered_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _P, _P, _P, _P, _P, _P]
-    lib.gsl_pregathered_fwd.restype = _I
-    lib.gsl_pregathered_bwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _P, _P, _P, _P, _P, _P, _P, _P]
-    lib.gsl_pregathered_bwd.restype = _I
-    return lib
-
-
 def tile_order(counts: torch.Tensor, cap: int) -> torch.Tensor:
     """The kernels' tile order, deepest first: a stable descending argsort
     of the clamped counts, as int32 (the plain version of the order the
@@ -173,9 +152,10 @@ def _check_common(counts, geom, rgbd, ts: int, chunk: int) -> None:
         raise ValueError(f"chunk must be positive and divide cap {cap}, got "
                          f"{chunk}")
     dev = geom.device
-    _check(geom, "geom", torch.float32, geom.shape, dev)
-    _check(rgbd, "rgbd", torch.float32, (num_tiles, _RGBD_ROWS, cap), dev)
-    _check(counts, "counts", torch.int32, (num_tiles,), dev)
+    check_tensor(geom, "geom", torch.float32, geom.shape, dev)
+    check_tensor(rgbd, "rgbd", torch.float32, (num_tiles, _RGBD_ROWS, cap),
+                 dev)
+    check_tensor(counts, "counts", torch.int32, (num_tiles,), dev)
 
 
 def pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x: int, ts: int,
@@ -184,7 +164,6 @@ def pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x: int, ts: int,
     and the ``BlendWalk`` that K4 takes. Window t holds the pairs of image
     tile ``tile0 + t``."""
     _check_common(counts, geom, rgbd, ts, chunk)
-    lib = _lib()
     num_tiles, _, cap = geom.shape
     npix = ts * ts
     walk = _new_walk(num_tiles, npix, (num_tiles, cap // chunk), geom.device)
@@ -192,15 +171,9 @@ def pregathered_blend_fwd_cuda(counts, geom, rgbd, grid_x: int, ts: int,
     accum = torch.empty((num_tiles, 4, npix), **out)
     log_t = torch.empty((num_tiles, npix, 1), **out)
     resid = torch.empty((num_tiles, npix, 2), **out)
-    with torch.cuda.device(geom.device):
-        cs = torch.cuda.current_stream().cuda_stream
-        rc = lib.gsl_pregathered_fwd(
-            counts.data_ptr(), walk.order.data_ptr(), geom.data_ptr(),
-            rgbd.data_ptr(), num_tiles, cap, grid_x, chunk, tile0,
-            accum.data_ptr(), log_t.data_ptr(), resid.data_ptr(),
-            walk.last.data_ptr(), walk.chunk_logt.data_ptr(), cs)
-    _raise_on(lib, rc, "pregathered blend forward launch")
-    LAUNCHES["pregathered_fwd"] += 1
+    launch("pregathered_fwd", geom.device, counts, walk.order, geom, rgbd,
+           num_tiles, cap, grid_x, chunk, tile0, accum, log_t, resid,
+           walk.last, walk.chunk_logt)
     return accum, log_t, resid, walk
 
 
@@ -214,23 +187,15 @@ def pregathered_blend_bwd_cuda(counts, geom, rgbd, gacc, glogt, log_t,
     num_tiles, _, cap = geom.shape
     npix = ts * ts
     dev = geom.device
-    _check(gacc, "gacc", torch.float32, (num_tiles, 4, npix), dev)
-    _check(glogt, "glogt", torch.float32, (num_tiles, npix, 1), dev)
-    _check(log_t, "log_t", torch.float32, (num_tiles, npix, 1), dev)
+    check_tensor(gacc, "gacc", torch.float32, (num_tiles, 4, npix), dev)
+    check_tensor(glogt, "glogt", torch.float32, (num_tiles, npix, 1), dev)
+    check_tensor(log_t, "log_t", torch.float32, (num_tiles, npix, 1), dev)
     _check_walk(walk, num_tiles, npix, (num_tiles, cap // chunk), dev)
-    lib = _lib()
     dgeom = torch.empty_like(geom)
     drgbd = torch.empty_like(rgbd)
-    with torch.cuda.device(dev):
-        cs = torch.cuda.current_stream().cuda_stream
-        rc = lib.gsl_pregathered_bwd(
-            counts.data_ptr(), walk.order.data_ptr(), geom.data_ptr(),
-            rgbd.data_ptr(), num_tiles, cap, grid_x, chunk, tile0,
-            gacc.data_ptr(), glogt.data_ptr(), log_t.data_ptr(),
-            walk.last.data_ptr(), walk.chunk_logt.data_ptr(),
-            dgeom.data_ptr(), drgbd.data_ptr(), cs)
-    _raise_on(lib, rc, "pregathered blend backward launch")
-    LAUNCHES["pregathered_bwd"] += 1
+    launch("pregathered_bwd", dev, counts, walk.order, geom, rgbd, num_tiles,
+           cap, grid_x, chunk, tile0, gacc, glogt, log_t, walk.last,
+           walk.chunk_logt, dgeom, drgbd)
     return dgeom, drgbd
 
 

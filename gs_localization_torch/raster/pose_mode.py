@@ -29,15 +29,11 @@ blends them with the pregathered kernels (K3/K4).
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .. import LAUNCHES
-from .. import _kernels
-from .._kernels import check_tensor, raise_on
+from .._kernels import check_tensor, launch
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams
 from ..utils.profiling import count, note, span
@@ -323,22 +319,6 @@ def camera_vectors(camera: Camera) -> Tuple[torch.Tensor, torch.Tensor]:
     return pose, intr
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _kernels.load()
-    lib.gsl_pose_project_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I,
-                                         ctypes.c_float, _P, _P]
-    lib.gsl_pose_project_fwd.restype = _I
-    lib.gsl_pose_project_bwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P,
-                                         _I, _P, _P]
-    lib.gsl_pose_project_bwd.restype = _I
-    return lib
-
-
 def _check_inputs(params, kept_al, pose, intr) -> None:
     dev = params.device
     if not params.is_cuda:
@@ -360,14 +340,8 @@ def pose_project_fwd_cuda(params, kept_al, pose, intr, width: int,
     _check_inputs(params, kept_al, pose, intr)
     n = params.shape[1]
     out = torch.empty_like(params)
-    lib = _lib()
-    with torch.cuda.device(params.device):
-        rc = lib.gsl_pose_project_fwd(
-            params.data_ptr(), kept_al.data_ptr(), pose.data_ptr(),
-            intr.data_ptr(), n, width, height, near_cull, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    raise_on(lib, rc, "pose projection forward launch")
-    LAUNCHES["pose_project_fwd"] += 1
+    launch("pose_project_fwd", params.device, params, kept_al, pose, intr,
+           n, width, height, near_cull, out)
     return out
 
 
@@ -384,15 +358,8 @@ def pose_project_bwd_cuda(params, kept_al, pose, intr, dstream, width: int,
     partials = torch.empty((blocks, _GRAD), dtype=torch.float64,
                            device=params.device)
     grad = torch.empty(_GRAD, dtype=torch.float32, device=params.device)
-    lib = _lib()
-    with torch.cuda.device(params.device):
-        rc = lib.gsl_pose_project_bwd(
-            params.data_ptr(), kept_al.data_ptr(), pose.data_ptr(),
-            intr.data_ptr(), dstream.data_ptr(), n, width, height,
-            partials.data_ptr(), blocks, grad.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    raise_on(lib, rc, "pose projection backward launch")
-    LAUNCHES["pose_project_bwd"] += 1
+    launch("pose_project_bwd", params.device, params, kept_al, pose, intr,
+           dstream, n, width, height, partials, blocks, grad)
     return grad
 
 
@@ -423,15 +390,13 @@ def _project_stream(params: torch.Tensor, kept_al: torch.Tensor,
     CUDA tensors launch P1 (forward) and P2 (backward) of
     ``csrc/pose_project.cu`` over the positions below ``kept_al``, zero
     past it, or raise; CPU tensors take the plain version
-    (``_project_stream_plain``, every position). Counts ``project_kernel``
-    per CUDA call."""
+    (``_project_stream_plain``, every position)."""
     if params.is_cuda:
         pose, intr = camera_vectors(camera)
         if intr.requires_grad:
             raise ValueError("the CUDA pose projection differentiates the "
                              "pose only; the intrinsics must not require "
                              "grad")
-        count("project_kernel")
         return _PoseProject.apply(params, kept_al, pose, intr, camera.width,
                                   camera.height, near_cull)
     if params.device.type == "cpu":

@@ -29,16 +29,11 @@ Row layout: 0 x, 1 y, 2..4 conic a b c, 5 opacity, 6 valid, 7 pad,
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
-from .. import LAUNCHES
-from .. import _kernels
-from .._kernels import check_tensor as _check
-from .._kernels import raise_on as _raise_on
+from .._kernels import check_tensor, launch
 from .binning import StreamBins
 from .blend import TileBlendOut
 from .constants import ALPHA_MAX, ALPHA_MIN, LOG_T_EPS
@@ -237,10 +232,6 @@ def stream_blend_bwd_plain(stream: torch.Tensor, tstart: torch.Tensor,
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
 class BlendWalk(NamedTuple):
     """What a CUDA blend forward (K1, K3) records for its backward (K2,
     K4): the tile order it ran in, (T,) int32; for each pixel one past the
@@ -269,27 +260,16 @@ def _new_walk(num_tiles: int, npix: int, chunks: tuple, device) -> BlendWalk:
 
 def _check_walk(walk: BlendWalk, num_tiles: int, npix: int, chunks: tuple,
                 device) -> None:
-    _check(walk.order, "walk.order", torch.int32, (num_tiles,), device)
-    _check(walk.last, "walk.last", torch.int32, (num_tiles, npix), device)
-    _check(walk.chunk_logt, "walk.chunk_logt", torch.float32,
-           (*chunks, npix), device)
+    check_tensor(walk.order, "walk.order", torch.int32, (num_tiles,), device)
+    check_tensor(walk.last, "walk.last", torch.int32, (num_tiles, npix),
+                 device)
+    check_tensor(walk.chunk_logt, "walk.chunk_logt", torch.float32,
+                 (*chunks, npix), device)
 
 
 def _stream_chunks(mrpad: int, chunk: int) -> tuple:
     """K1's records: one row per chunk of the stream."""
     return (-(-mrpad // chunk),)
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _kernels.load()
-    lib.gsl_stream_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                   _P, _P, _P, _P]
-    lib.gsl_stream_fwd.restype = _I
-    lib.gsl_stream_bwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                   _P, _P, _P, _P, _P]
-    lib.gsl_stream_bwd.restype = _I
-    return lib
 
 
 def _check_common(stream, tstart, walk_counts, ts: int, chunk: int) -> None:
@@ -307,9 +287,9 @@ def _check_common(stream, tstart, walk_counts, ts: int, chunk: int) -> None:
             or stream.shape[1] < chunk:
         raise ValueError(f"stream: shape {tuple(stream.shape)}, expected "
                          f"({_RPAD}, >= chunk)")
-    _check(stream, "stream", torch.float32, stream.shape, dev)
-    _check(tstart, "tstart", torch.int32, tstart.shape, dev)
-    _check(walk_counts, "walk_counts", torch.int32, tstart.shape, dev)
+    check_tensor(stream, "stream", torch.float32, stream.shape, dev)
+    check_tensor(tstart, "tstart", torch.int32, tstart.shape, dev)
+    check_tensor(walk_counts, "walk_counts", torch.int32, tstart.shape, dev)
     if tstart.dim() != 1:
         raise ValueError("tstart must be 1-D")
 
@@ -319,7 +299,6 @@ def stream_blend_fwd_cuda(stream, tstart, walk_counts, grid_x: int, ts: int,
     """Launch K1: -> accum (T,4,npix), log_t (T,npix,1), resid (T,npix,2)
     and the ``BlendWalk`` that K2 takes."""
     _check_common(stream, tstart, walk_counts, ts, chunk)
-    lib = _lib()
     num_tiles = tstart.shape[0]
     npix = ts * ts
     walk = _new_walk(num_tiles, npix,
@@ -328,15 +307,9 @@ def stream_blend_fwd_cuda(stream, tstart, walk_counts, grid_x: int, ts: int,
     accum = torch.empty((num_tiles, 4, npix), **out)
     log_t = torch.empty((num_tiles, npix, 1), **out)
     resid = torch.empty((num_tiles, npix, 2), **out)
-    with torch.cuda.device(stream.device):
-        cs = torch.cuda.current_stream().cuda_stream
-        rc = lib.gsl_stream_fwd(
-            tstart.data_ptr(), walk_counts.data_ptr(), walk.order.data_ptr(),
-            stream.data_ptr(), num_tiles, stream.shape[1], grid_x, chunk,
-            accum.data_ptr(), log_t.data_ptr(), resid.data_ptr(),
-            walk.last.data_ptr(), walk.chunk_logt.data_ptr(), cs)
-    _raise_on(lib, rc, "stream blend forward launch")
-    LAUNCHES["stream_fwd"] += 1
+    launch("stream_fwd", stream.device, tstart, walk_counts, walk.order,
+           stream, num_tiles, stream.shape[1], grid_x, chunk, accum, log_t,
+           resid, walk.last, walk.chunk_logt)
     return accum, log_t, resid, walk
 
 
@@ -349,23 +322,15 @@ def stream_blend_bwd_cuda(stream, tstart, walk_counts, gacc, glogt, log_t,
     num_tiles = tstart.shape[0]
     npix = ts * ts
     dev = stream.device
-    _check(gacc, "gacc", torch.float32, (num_tiles, 4, npix), dev)
-    _check(glogt, "glogt", torch.float32, (num_tiles, npix, 1), dev)
-    _check(log_t, "log_t", torch.float32, (num_tiles, npix, 1), dev)
+    check_tensor(gacc, "gacc", torch.float32, (num_tiles, 4, npix), dev)
+    check_tensor(glogt, "glogt", torch.float32, (num_tiles, npix, 1), dev)
+    check_tensor(log_t, "log_t", torch.float32, (num_tiles, npix, 1), dev)
     _check_walk(walk, num_tiles, npix,
                 _stream_chunks(stream.shape[1], chunk), dev)
-    lib = _lib()
     dstream = torch.zeros_like(stream)
-    with torch.cuda.device(dev):
-        cs = torch.cuda.current_stream().cuda_stream
-        rc = lib.gsl_stream_bwd(
-            tstart.data_ptr(), walk_counts.data_ptr(), walk.order.data_ptr(),
-            stream.data_ptr(), num_tiles, stream.shape[1], grid_x, chunk,
-            gacc.data_ptr(), glogt.data_ptr(), log_t.data_ptr(),
-            walk.last.data_ptr(), walk.chunk_logt.data_ptr(),
-            dstream.data_ptr(), cs)
-    _raise_on(lib, rc, "stream blend backward launch")
-    LAUNCHES["stream_bwd"] += 1
+    launch("stream_bwd", dev, tstart, walk_counts, walk.order, stream,
+           num_tiles, stream.shape[1], grid_x, chunk, gacc, glogt, log_t,
+           walk.last, walk.chunk_logt, dstream)
     return dstream
 
 

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import gs_localization_torch as gsl
+from gs_localization_torch import _kernels
 from gs_localization_torch.core.camera import Camera
 from gs_localization_torch.core.gaussians import GaussianParams
 from gs_localization_torch.pipelines.localize import (
@@ -21,8 +22,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gs_localization_tpu")
 # the card tests and their helper run where JAX is not installed
 PORT_FILES = sorted((ROOT / "gs_localization_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "blend_ablation.py",
-    ROOT / "tests" / "test_torch_cuda.py", ROOT / "tests" / "blend_edges.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+    ROOT / "tests" / "blend_edges.py"]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -162,13 +163,12 @@ def test_training_entry_points_default_to_cuda(no_cuda):
 
 
 def test_reset_launches():
-    gsl.LAUNCHES["stream_fwd"] += 3
-    gsl.LAUNCHES["pregathered_bwd"] += 1
+    assert gsl.LAUNCHES is _kernels.LAUNCHES
+    for name in gsl.LAUNCHES:
+        gsl.LAUNCHES[name] += 3
     gsl.reset_launches()
-    assert gsl.LAUNCHES == {"stream_fwd": 0, "stream_bwd": 0,
-                            "pregathered_fwd": 0, "pregathered_bwd": 0,
-                            "bin_owner": 0, "bin_place": 0,
-                            "pose_project_fwd": 0, "pose_project_bwd": 0}
+    names = {e.counter or n for n, e in _kernels.TABLE.items()}
+    assert gsl.LAUNCHES == dict.fromkeys(names, 0)
 
 
 def test_scene_entry_points_default_to_cuda(no_cuda, tmp_path):
