@@ -35,13 +35,22 @@
    against ``_project_core`` (the same bits expected), P2 against the
    plain adjoint and itself, timed beside their byte bounds, the plain
    forward and its autograd backward, with their launches and occupancy;
+   and the refinement's pose algebra A1/A2, V1/V2 and S1
+   (``csrc/pose_algebra.cu``) against their plain versions at the bench
+   camera, each timed beside its plain version, and one iteration's pose
+   algebra both ways;
 4. checks the CUDA path against the plain CPU path on the small scene
    (pose-mode images and the camera-tangent gradient, on the stream pack
    and on the PairPack);
 5. localization path: 4 perturbed queries through ``localize_queries`` in
    pose mode on the stream layout (K1/K2; 50 iterations, lr 1e-3, rebin
    every 10), with the launch counters set to 0 just before and read just
-   after, and every query's final pose error below its initial one;
+   after, and every query's final pose error below its initial one; here
+   and on every later refinement path (the PairPack, the scene runner's
+   localize stage, all stages, the learned front end, the hloc confs) the
+   pose algebra's launches are checked against the path's iterations (A1
+   twice an iteration, A2 and S1 once, V1/V2 once on the stream layout)
+   and reported under ``binning`` as ``pose algebra launches``;
 6. layout cross-check at full width: ``rasterize`` + ``training_loss`` of a
    ``from_pcd`` map on the stream layout (K1/K2) and on the pregathered
    layout (K3/K4): images, losses and the gradients of every trainable
@@ -833,12 +842,31 @@ def pregathered_work(counts, geom, rgbd, resid, grid_x: int):
 
 BLEND_KERNELS = ("stream_fwd", "stream_bwd", "pregathered_fwd",
                  "pregathered_bwd")
+POSE_ALGEBRA = ("se3_apply_fwd", "se3_apply_bwd", "pose_vectors_fwd",
+                "pose_vectors_bwd", "refine_adam")
 
 
 def blend_launches(launches: dict) -> dict:
     """K1-K4's counts of a launch tally (the binning kernels launch once per
     binning, which the phases do not count ahead)."""
     return {k: launches[k] for k in BLEND_KERNELS}
+
+
+def pose_algebra_launches(label: str, launches: dict, iters: int,
+                          stream: bool = True) -> dict:
+    """A path's launches of the refinement's pose algebra, checked against
+    its ``iters`` refinement iterations: A1 twice an iteration (the
+    tangent, the retraction), A2 and S1 once, and V1/V2 once on the stream
+    layout (the ``PairPack``'s projection reads the camera itself)."""
+    got = {k: launches[k] for k in POSE_ALGEBRA}
+    v = iters if stream else 0
+    want = {"se3_apply_fwd": 2 * iters, "se3_apply_bwd": iters,
+            "pose_vectors_fwd": v, "pose_vectors_bwd": v,
+            "refine_adam": iters}
+    check(iters > 0 and got == want,
+          f"{label}: pose-algebra launches {got} != {want} ({iters} "
+          f"refinement iterations)")
+    return got
 
 
 def scene_case(dev):
@@ -1054,7 +1082,9 @@ def pose_projection(label: str, pack, cam) -> dict:
     torch.cuda.synchronize()
     launches = {k: gsl.LAUNCHES[k] - before[k] for k in before
                 if gsl.LAUNCHES[k] != before[k]}
-    check(launches == {"pose_project_fwd": 1, "pose_project_bwd": 1},
+    check(launches == {"pose_project_fwd": 1, "pose_project_bwd": 1,
+                       "se3_apply_fwd": 1, "se3_apply_bwd": 1,
+                       "pose_vectors_fwd": 1, "pose_vectors_bwd": 1},
           f"[{label}] launches of one projection: {launches}")
 
     def plain_fwd():
@@ -1099,6 +1129,123 @@ def pose_projection(label: str, pack, cam) -> dict:
     return row
 
 
+def pose_algebra(cam) -> dict:
+    """A1/A2, V1/V2 and S1 (``csrc/pose_algebra.cu``) against their plain
+    versions at ``cam`` moved by ``PROJ_TAU``: A1 and V1 within 2 float32
+    ulps of the terms' magnitude, A2, V2 and S1 within 1e-6 of the largest
+    entry. Times each kernel (device ms per call back to back, enqueued
+    ahead; the median single call; host us per call over calls back to
+    back) beside its plain version on the card, and the host time of one
+    iteration's pose algebra both ways: the tangent into the camera
+    vectors, their backward, the Adam step and the retraction."""
+    import torch
+    from gs_localization_torch.core import se3
+    from gs_localization_torch.loc import refine
+    from gs_localization_torch.raster import pose_mode as pm
+
+    dev = cam.device
+    tau = torch.tensor(PROJ_TAU, device=dev)
+    w2c = cam.w2c
+    cam_q = cam.with_delta(tau)
+    gen = torch.Generator().manual_seed(7)
+    g44 = torch.randn((4, 4), generator=gen).to(dev)
+    gpose = torch.randn(24, generator=gen).to(dev)
+    g6, g2 = (torch.randn(n, generator=gen).to(dev) * 1e-3 for n in (6, 2))
+    state = [torch.zeros(n, device=dev) for n in (6, 6, 2, 2, 2)]
+
+    def ulps(got, want, scale) -> float:
+        scale = scale.float().abs()
+        ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) \
+            - scale
+        return float(((got - want).abs() / ulp).max())
+
+    def rel(got, want) -> float:
+        return float((got - want).abs().max() / want.abs().max())
+
+    a1 = se3.apply_delta_fwd_cuda(tau, w2c)
+    terms = se3.se3_exp(tau.double()).abs() @ w2c.double().abs()
+    err = {"A1_ulps": ulps(a1, se3.se3_exp(tau) @ w2c, terms)}
+    pose, intr = pm.pose_vectors_fwd_cuda(cam_q)
+    pose_p, intr_p = pm._camera_vectors_plain(cam_q)
+    fp = cam_q.projection.double().abs() @ cam_q.w2c.double().abs()
+    scale = torch.cat([cam_q.w2c[:3].double().abs(), fp[0:2], fp[3:4]])
+    err["V1_ulps"] = max(ulps(pose, pose_p, scale.reshape(24)),
+                         ulps(intr, intr_p, intr_p))
+    err["A2_rel"] = max(rel(k, p) for k, p in zip(
+        se3.apply_delta_bwd_cuda(tau, w2c, g44),
+        se3._apply_delta_adjoint(tau, w2c, g44)))
+    err["V2_rel"] = rel(pm.pose_vectors_bwd_cuda(cam_q, gpose),
+                        pm._camera_vectors_adjoint(cam_q, gpose))
+    kern, plain = [x.clone() for x in state], [x.clone() for x in state]
+    out_k = refine.refine_adam_cuda(g6, g2, *kern, 3.0, 1e-3)
+    out_p = refine.refine_adam_plain(g6, g2, *plain, 3.0, 1e-3)
+    err["S1_rel"] = max(rel(k, p) for k, p in zip(kern + list(out_k),
+                                                  plain + list(out_p)))
+    check(err["A1_ulps"] <= 2 and err["V1_ulps"] <= 2,
+          f"A1/V1 != plain: {err}")
+    check(max(err["A2_rel"], err["V2_rel"], err["S1_rel"]) <= 1e-6,
+          f"A2/V2/S1 != plain: {err}")
+
+    def host_us(fn, n: int = 200) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def plain_bwd(fwd, x, g):
+        def run():
+            xx = x.detach().requires_grad_()
+            torch.autograd.grad(fwd(xx), xx, g)
+        return run
+
+    a1_plain = lambda: se3.se3_exp(tau) @ w2c  # noqa: E731
+    calls = {
+        "A1": (lambda: se3.apply_delta_fwd_cuda(tau, w2c), a1_plain),
+        "A2": (lambda: se3.apply_delta_bwd_cuda(tau, w2c, g44),
+               plain_bwd(lambda t: se3.se3_exp(t) @ w2c, tau, g44)),
+        "V1": (lambda: pm.pose_vectors_fwd_cuda(cam_q),
+               lambda: pm._camera_vectors_plain(cam_q)),
+        "V2": (lambda: pm.pose_vectors_bwd_cuda(cam_q, gpose),
+               plain_bwd(lambda w: pm._camera_vectors_plain(
+                   cam_q.replace(w2c=w))[0], cam_q.w2c, gpose)),
+        "S1": (lambda: refine.refine_adam_cuda(g6, g2, *kern, 3.0, 1e-3),
+               lambda: refine.refine_adam_plain(g6, g2, *plain, 3.0, 1e-3)),
+    }
+
+    row = {"errors": err}
+    for name, (k_fn, p_fn) in calls.items():
+        row[name] = dict(device_ms=device_ms(k_fn, 200, queued=True),
+                         ms=time_ms(k_fn),
+                         host_us=host_us(k_fn), plain_ms=time_ms(p_fn),
+                         plain_host_us=host_us(p_fn))
+
+    def iteration(kernels: bool):
+        def run():
+            t = torch.zeros(6, device=dev, requires_grad=True)
+            if kernels:
+                p, _ = pm.camera_vectors(cam.with_delta(t))
+            else:
+                p, _ = pm._camera_vectors_plain(
+                    cam.replace(w2c=se3.se3_exp(t) @ w2c))
+            (gt,) = torch.autograd.grad(p, t, gpose)
+            step = refine.refine_adam if kernels else refine.refine_adam_plain
+            upd6, norm = step(gt, g2, *state, 3.0, 1e-3)
+            if kernels:
+                se3.apply_delta(upd6, w2c)
+            else:
+                se3.se3_exp(upd6) @ w2c
+        return run
+
+    row["iteration"] = dict(host_us=host_us(iteration(True)),
+                            plain_host_us=host_us(iteration(False)))
+    print(f"[pose algebra] A1/V1 within 2 ulps, A2/V2/S1 within 1e-6 of "
+          f"plain; {json.dumps(row)}")
+    return row
+
+
 def time_ms(fn, n: int = N_TIMED) -> float:
     """Median over n runs of one call, CUDA events, after a warm-up."""
     import torch
@@ -1117,15 +1264,20 @@ def time_ms(fn, n: int = N_TIMED) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, n: int = N_TIMED) -> float:
+def device_ms(fn, n: int = N_TIMED, queued: bool = False) -> float:
     """Device time per call: CUDA events around n calls made back to back
-    after a warm-up, so that the host's enqueue overlaps the card's work."""
+    after a warm-up, so that the host's enqueue overlaps the card's work.
+    ``queued``: the card first spins for ~25 ms, so that calls whose host
+    side is slower than their kernel are all enqueued before the first
+    event runs and the events time the kernels alone."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(50_000_000)
     t0.record()
     for _ in range(n):
         fn()
@@ -1476,6 +1628,7 @@ def all_stages(g, cam, cfg, dev) -> dict:
               f"iterations)")
         check(blend_launches(launches) == want and n_loc > 0,
               f"--stage all launches {launches} != {want}")
+        pose_algebra_launches("[all]", launches, n_loc)
         _, metrics = done["localize"]
         check((out / "metrics.json").exists(), "no metrics.json")
         on_disk = json.loads((out / "metrics.json").read_text())
@@ -2066,6 +2219,7 @@ def learned_front_end(g, cam, cfg, dev) -> dict:
               f"iterations)")
         check(blend_launches(launches) == want and n_loc > 0,
               f"--stage all --weights-dir launches {launches} != {want}")
+        pose_algebra_launches("[learned]", launches, n_loc)
         on_disk = json.loads((out / "metrics.json").read_text())
         check(all(np.isfinite(v) for v in on_disk.values()),
               f"non-finite metrics {on_disk}")
@@ -2458,6 +2612,7 @@ def hloc_confs(g, cam, cfg, dev) -> dict:
               "end's points")
         check(blend_launches(launches) == want and n_loc > 0,
               f"hloc launches {launches} != {want}")
+        pose_algebra_launches("[hloc]", launches, n_loc)
         for out in (out_s, out_d):
             on_disk = json.loads((out / "metrics.json").read_text())
             check(all(np.isfinite(v) for v in on_disk.values()),
@@ -3075,6 +3230,8 @@ def main() -> None:
         bin_result["scene P1/P2"] = pose_projection("scene", pack_m, cam_m)
         del scene, g_m, pack_m
         torch.cuda.empty_cache()
+    with phase("pose algebra vs plain"):
+        bin_result["pose algebra"] = pose_algebra(cam)
 
     # ---- K3/K4 vs plain --------------------------------------------------
     with phase("K3/K4 vs plain"):
@@ -3185,6 +3342,7 @@ def main() -> None:
               and launches_loc["pregathered_fwd"] == 0
               and launches_loc["pregathered_bwd"] == 0,
               f"launch counts {launches_loc} != {iters} iterations")
+        pose_algebra_launches("localize", launches_loc, iters)
 
     # ---- training scene: 10 views of the bench map --------------------------
     with phase("training scene"):
@@ -3643,6 +3801,8 @@ def main() -> None:
               and launches_pair["pregathered_bwd"] == iters_pair
               and launches_pair["stream_fwd"] == 0,
               f"PairPack launches {launches_pair} != {iters_pair} iterations")
+        pose_algebra_launches("pairpack", launches_pair, iters_pair,
+                              stream=False)
         # K3/K4 vs plain on a PairPack's windows (valid row from the
         # projection, max_per_tile of this phase)
         with torch.no_grad():
@@ -3823,6 +3983,8 @@ def main() -> None:
                   and launches_scene_loc["pregathered_fwd"] == 0
                   and launches_scene_loc["pregathered_bwd"] == 0,
                   f"scene localize launches {launches_scene_loc}")
+            pose_algebra_launches("scene localize", launches_scene_loc,
+                                  n_loc)
             poses_s = read_pose_results(str(out_s / "results.txt"))
             check(sorted(poses_s) == sorted(test_names),
                   f"results.txt holds {sorted(poses_s)}")
@@ -4014,6 +4176,18 @@ def main() -> None:
               k34_launches["pregathered_bwd"], err_k4, tk["K4"], k4p_ms,
               work34["bwd_bytes"], work34["bwd_ops_s"]),
     ]
+    # A1/A2, V1/V2 and S1 on the refinement paths, each counted from 0
+    # over its own run (the multi-device phase's A1/A2 also count one
+    # differentiated camera of its sharded renders)
+    bin_result["pose algebra launches"] = {
+        path: {k: launches[k] for k in POSE_ALGEBRA}
+        for path, launches in (
+            ("localize", launches_loc), ("pairpack", launches_pair),
+            ("scene localize", launches_scene_loc),
+            ("all stages", launches_all), ("learned", launches_learned),
+            ("hloc", launches_hloc), ("multi-device", launches_md))}
+    print(f"pose algebra launches: "
+          f"{json.dumps(bin_result['pose algebra launches'])}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "binning": bin_result}))
     print(smi)

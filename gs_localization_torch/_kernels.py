@@ -3,9 +3,10 @@
 Every ``csrc/*.cu`` (the stream blend K1/K2 and the pregathered blend
 K3/K4, which share ``csrc/blend_common.cuh``; binning's slot-owner and
 stream-placement kernels B1/B2, ``csrc/binning.cu``; pose mode's projection
-P1 and its adjoint P2, ``csrc/pose_project.cu``) is compiled by ``nvcc`` at
-first use, one process per source, all started together, and the objects
-are linked into one shared library with a plain C interface in
+P1 and its adjoint P2, ``csrc/pose_project.cu``; the refinement's pose
+algebra A1/A2, V1/V2 and S1, ``csrc/pose_algebra.cu``) is compiled by
+``nvcc`` at first use, one process per source, all started together, and
+the objects are linked into one shared library with a plain C interface in
 ``build/torch_kernels/`` beside the package. The library's name carries a
 hash of every source and header and of the flags. It is loaded with
 ``ctypes``. Nothing here runs at import time, so the package imports on a
@@ -150,6 +151,17 @@ TABLE: Dict[str, Entry] = {
     "pose_project_bwd": Entry("gsl_pose_project_bwd", "pppppiiipip",
                               "pose projection backward launch",
                               info=("P2", "gsl_pose_project_info", 1)),
+    # the refinement's pose algebra, csrc/pose_algebra.cu: A1/A2, V1/V2, S1
+    "se3_apply_fwd": Entry("gsl_se3_apply_fwd", "ppp",
+                           "se3 retraction forward launch"),
+    "se3_apply_bwd": Entry("gsl_se3_apply_bwd", "ppppp",
+                           "se3 retraction backward launch"),
+    "pose_vectors_fwd": Entry("gsl_pose_vectors_fwd", "pppppiiffpp",
+                              "camera vectors forward launch"),
+    "pose_vectors_bwd": Entry("gsl_pose_vectors_bwd", "ppppiiffpp",
+                              "camera vectors backward launch"),
+    "refine_adam": Entry("gsl_refine_adam", "pppppppppffffffff",
+                         "refinement Adam step launch"),
 }
 
 # Launch counters of the hand-written kernels: ``launch`` adds one per

@@ -6,7 +6,12 @@ masked tracking loss, backprops to the SE(3) tangent, steps, then retracts
 w2c <- exp(tau) @ w2c and re-zeros tau; stop when ||tau_update|| < 1e-4.
 
 The loop is a Python loop (one host read per iteration for the convergence
-test); queries are refined one after another. Each refinement records the
+test); queries are refined one after another. On the card the step is one
+launch (S1, ``csrc/pose_algebra.cu``: both Adam updates, the exposure and
+the update's norm), and the retraction and the tangent's way into the
+render are A1/A2 (``core/se3.py``) and V1/V2 (``raster/pose_mode.py``):
+six launches of pose algebra an iteration in pose mode, and no wait but
+the convergence read. Each refinement records the
 span ``refine/pose`` and, an iteration, ``refine/rebin`` (when it rebins),
 ``refine/render`` (render and loss), ``refine/backward``, ``refine/step``
 (Adam and the retraction) and ``refine/converge`` (the read), with the
@@ -25,11 +30,14 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from .._kernels import check_tensor, launch
 from ..core import se3
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams
 from ..raster.rasterize import RasterizerConfig, compute_bins, rasterize
 from ..utils.profiling import count, host_read, span
+
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +99,52 @@ def tracking_loss(
     return loss
 
 
+def adam_update(g, m, v, t: float, lr: float):
+    """One Adam step at step count ``t``: (update, m, v)."""
+    m = _B1 * m + (1 - _B1) * g
+    v = _B2 * v + (1 - _B2) * g * g
+    mhat = m / (1 - _B1**t)
+    vhat = v / (1 - _B2**t)
+    return -lr * mhat / (torch.sqrt(vhat) + _EPS), m, v
+
+
+def refine_adam_plain(g6, g2, m6, v6, m2, v2, ab, t: float, lr: float):
+    """The plain version of S1 (``csrc/pose_algebra.cu``): ``adam_update``
+    of the tangent's gradient ``g6`` and the exposure's ``g2`` at step
+    ``t``, the moments updated in place, ``ab`` += the exposure's update in
+    place; returns (the tangent's update (6,), its norm ())."""
+    upd, m, v = adam_update(torch.cat([g6, g2]), torch.cat([m6, m2]),
+                            torch.cat([v6, v2]), t, lr)
+    for dst, src in ((m6, m[:6]), (m2, m[6:]), (v6, v[:6]), (v2, v[6:])):
+        dst.copy_(src)
+    ab.add_(upd[6:])
+    upd6 = upd[:6]
+    return upd6, torch.linalg.norm(upd6)
+
+
+def refine_adam_cuda(g6, g2, m6, v6, m2, v2, ab, t: float, lr: float):
+    """Launch S1: ``refine_adam_plain``'s step in one kernel, the bias
+    corrections computed here as ``adam_update`` computes them."""
+    dev = m6.device
+    g6, g2 = g6.contiguous(), g2.contiguous()
+    for name, x, n in (("g6", g6, 6), ("g2", g2, 2), ("m6", m6, 6),
+                       ("v6", v6, 6), ("m2", m2, 2), ("v2", v2, 2),
+                       ("ab", ab, 2)):
+        check_tensor(x, name, torch.float32, (n,), dev)
+    upd6 = torch.empty(6, dtype=torch.float32, device=dev)
+    norm = torch.empty((), dtype=torch.float32, device=dev)
+    launch("refine_adam", dev, g6, g2, m6, v6, m2, v2, ab, upd6, norm, _B1,
+           1 - _B1, _B2, 1 - _B2, _EPS, lr, 1 - _B1**t, 1 - _B2**t)
+    return upd6, norm
+
+
+def refine_adam(g6, g2, m6, v6, m2, v2, ab, t: float, lr: float):
+    """S1 on CUDA tensors, ``refine_adam_plain`` elsewhere."""
+    if m6.is_cuda:
+        return refine_adam_cuda(g6, g2, m6, v6, m2, v2, ab, t, lr)
+    return refine_adam_plain(g6, g2, m6, v6, m2, v2, ab, t, lr)
+
+
 def refine_pose(
     gaussians: GaussianParams,
     camera: Camera,
@@ -131,15 +185,6 @@ def refine_pose(
 
     dev = camera.w2c.device
     zeros = lambda n: torch.zeros(n, dtype=torch.float32, device=dev)  # noqa: E731
-    b1, b2, eps = 0.9, 0.999, 1e-8
-
-    def adam_update(g, m, v, t):
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        mhat = m / (1 - b1**t)
-        vhat = v / (1 - b2**t)
-        return -cfg.lr * mhat / (torch.sqrt(vhat) + eps), m, v
-
     w2c = camera.w2c.detach()
     ab = zeros(2)
     m6, v6, m2, v2 = zeros(6), zeros(6), zeros(2), zeros(2)
@@ -167,17 +212,15 @@ def refine_pose(
             with span("refine/step"):
                 t = float(it + 1)
                 with torch.no_grad():
-                    upd6, m6, v6 = adam_update(g_tau, m6, v6, t)
-                    upd2, m2, v2 = adam_update(g_ab, m2, v2, t)
+                    upd6, norm = refine_adam(g_tau, g_ab, m6, v6, m2, v2, ab,
+                                             t, cfg.lr)
                     # retraction: fold the updated tangent into the pose
                     w2c = se3.apply_delta(upd6, w2c)
-                    ab = ab + upd2
             it += 1
             count("refine_iters")
             if cfg.convergence > 0:
                 with span("refine/converge"):
-                    done = host_read("converge", torch.linalg.norm(upd6)) \
-                        < cfg.convergence
+                    done = host_read("converge", norm) < cfg.convergence
                 if done:
                     break
         if ovf is None:                      # no iteration ran

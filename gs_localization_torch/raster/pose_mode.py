@@ -20,7 +20,9 @@ read on the device, and zeroes the rest; P2 is its analytic adjoint,
 reduced onto the pose in a fixed order), or raise; CPU tensors take the
 plain versions (``_project_core`` by autograd over every position, and
 ``_project_adjoint``, the adjoint P2 computes, as PyTorch ops), which are
-the yardstick the kernels are held against on the card.
+the yardstick the kernels are held against on the card. The pose vector
+they take (``camera_vectors``) is likewise V1 of ``csrc/pose_algebra.cu``
+for a CUDA camera, with its adjoint V2, and tensor ops elsewhere.
 
 The capped ``PairPack`` layout (``use_stream=False``) gathers the same
 params into per-tile (T, 16, max_per_tile) windows once per rebin, and
@@ -308,15 +310,93 @@ _THREADS = 256
 _BWD_BLOCKS = 1024  # P2's first-pass grid at most (its partials' rows)
 
 
-def camera_vectors(camera: Camera) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The pose as the kernels take it, built by tensor ops on the camera's
-    device (no host read): (24,) [w2c rows 0-2, full_proj rows 0, 1, 3],
-    differentiable, and (4,) [fx, fy, tan_fovx, tan_fovy], constants."""
+def _camera_vectors_plain(camera: Camera
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``camera_vectors`` by tensor ops on the camera's device (no host
+    read); the plain version of V1."""
     fp = camera.full_proj
     pose = torch.cat([camera.w2c[:3], fp[0:2], fp[3:4]]).reshape(_GRAD)
     intr = torch.stack([camera.fx, camera.fy, camera.tan_fovx,
                         camera.tan_fovy])
     return pose, intr
+
+
+def _camera_vectors_adjoint(camera: Camera,
+                            gpose: torch.Tensor) -> torch.Tensor:
+    """The plain version of V2 (``csrc/pose_algebra.cu``): the (24,) pose
+    vector's cotangent onto w2c's (4, 4), rows 0-2 directly plus
+    projection^T applied to the full_proj rows 0, 1 and 3."""
+    with torch.no_grad():
+        zero = torch.zeros_like(gpose[:4])
+        gfp = torch.cat([gpose[12:20], zero, gpose[20:]]).reshape(4, 4)
+        direct = torch.cat([gpose[:12], zero]).reshape(4, 4)
+        return camera.projection.T @ gfp + direct
+
+
+def _intrinsics(camera: Camera, dev) -> tuple:
+    """fx, fy, cx, cy, checked as V1/V2 take them: 0-d float32 on ``dev``,
+    constants."""
+    vals = (camera.fx, camera.fy, camera.cx, camera.cy)
+    for name, v in zip(("fx", "fy", "cx", "cy"), vals):
+        check_tensor(v, name, torch.float32, (), dev)
+        if v.requires_grad:
+            raise ValueError("the CUDA camera vectors differentiate the pose "
+                             "only; the intrinsics must not require grad")
+    return vals
+
+
+def pose_vectors_fwd_cuda(camera: Camera
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch V1: ``camera_vectors``' (24,) pose and (4,) intrinsics."""
+    w2c = camera.w2c.contiguous()
+    dev = w2c.device
+    check_tensor(w2c, "w2c", torch.float32, (4, 4), dev)
+    pose = torch.empty(_GRAD, dtype=torch.float32, device=dev)
+    intr = torch.empty(4, dtype=torch.float32, device=dev)
+    launch("pose_vectors_fwd", dev, w2c, *_intrinsics(camera, dev),
+           camera.width, camera.height, camera.znear, camera.zfar, pose, intr)
+    return pose, intr
+
+
+def pose_vectors_bwd_cuda(camera: Camera,
+                          gpose: torch.Tensor) -> torch.Tensor:
+    """Launch V2: the pose vector's cotangent onto w2c's (4, 4);
+    ``_camera_vectors_adjoint`` is its plain version."""
+    dev = gpose.device
+    check_tensor(gpose, "gpose", torch.float32, (_GRAD,), dev)
+    g_w2c = torch.empty((4, 4), dtype=torch.float32, device=dev)
+    launch("pose_vectors_bwd", dev, *_intrinsics(camera, dev), camera.width,
+           camera.height, camera.znear, camera.zfar, gpose, g_w2c)
+    return g_w2c
+
+
+class _CameraVectors(torch.autograd.Function):
+    """V1 forward, V2 backward: the gradient reaches w2c only (the
+    intrinsics are constants)."""
+
+    @staticmethod
+    def forward(ctx, w2c, camera):
+        # w2c is camera.w2c, passed for autograd to see it
+        ctx.camera = camera
+        pose, intr = pose_vectors_fwd_cuda(camera)
+        ctx.mark_non_differentiable(intr)
+        return pose, intr
+
+    @staticmethod
+    def backward(ctx, gpose, gintr):
+        return pose_vectors_bwd_cuda(ctx.camera, gpose.contiguous()), None
+
+
+def camera_vectors(camera: Camera) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pose as the kernels take it, on the camera's device with no host
+    read: (24,) [w2c rows 0-2, full_proj rows 0, 1, 3], differentiable, and
+    (4,) [fx, fy, tan_fovx, tan_fovy], constants. A CUDA camera launches V1
+    (V2 in the backward), and raises unless its pose is (4, 4) float32 and
+    its intrinsics 0-d float32 that do not require grad; a camera elsewhere
+    takes the tensor ops (``_camera_vectors_plain``)."""
+    if camera.w2c.is_cuda:
+        return _CameraVectors.apply(camera.w2c, camera)
+    return _camera_vectors_plain(camera)
 
 
 def _check_inputs(params, kept_al, pose, intr) -> None:
@@ -393,10 +473,6 @@ def _project_stream(params: torch.Tensor, kept_al: torch.Tensor,
     (``_project_stream_plain``, every position)."""
     if params.is_cuda:
         pose, intr = camera_vectors(camera)
-        if intr.requires_grad:
-            raise ValueError("the CUDA pose projection differentiates the "
-                             "pose only; the intrinsics must not require "
-                             "grad")
         return _PoseProject.apply(params, kept_al, pose, intr, camera.width,
                                   camera.height, near_cull)
     if params.device.type == "cpu":

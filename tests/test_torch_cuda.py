@@ -15,7 +15,9 @@ import gs_localization_torch as gsl
 from gs_localization_torch.core import sh as sh_lib
 from gs_localization_torch.core.camera import Camera
 from gs_localization_torch.core.gaussians import FIELDS, GaussianParams
+from gs_localization_torch.core import se3
 from gs_localization_torch.loc import TrackingConfig, refine_pose
+from gs_localization_torch.loc import refine as loc_refine
 from gs_localization_torch.mapping import train as mtrain
 from gs_localization_torch.raster import RasterizerConfig, rasterize
 from gs_localization_torch.raster import binning
@@ -271,6 +273,248 @@ def test_pose_projection_rejects_bad_cuda_inputs(case):
     with pytest.raises(ValueError, match="intrinsics"):
         _project_stream(pack.params, pack.kept_al,
                         cam.replace(fx=cam.fx.clone().requires_grad_()))
+
+
+# the refinement's pose algebra (csrc/pose_algebra.cu): tangents on either
+# branch of the exponential (zero and |theta| < 1e-5 the Taylor constants)
+ALG_TAUS = {"zero": (0.0,) * 6,
+            "small": (0.02, -0.01, 0.03, 3e-6, -2e-6, 4e-6),
+            "retraction": (1e-3, -2e-3, 5e-4, 1.5e-3, -1e-3, 2e-3),
+            "large": (0.2, -0.1, 0.3, 0.4, -0.3, 0.3)}
+
+
+def _alg_pose(seed: int, dev) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    tau = torch.tensor(np.concatenate([rng.uniform(-1, 1, 3),
+                                       rng.uniform(-0.5, 0.5, 3)]))
+    return se3.se3_exp(tau).float().to(dev)
+
+
+def _alg_camera(dev, seed: int, cx_shift: float) -> Camera:
+    fx = 96 / (2.0 * np.tan(0.5))
+    return Camera.from_numpy(_alg_pose(seed, "cpu").numpy(), fx, fx * 1.1,
+                             48.0 + cx_shift, 32.0 - cx_shift, 96, 64,
+                             device=dev)
+
+
+def _within_ulps(got, want, scale, n: int = 2) -> None:
+    """|got - want| <= n float32 ulps of ``scale``: each entry's own
+    magnitude, or for a matrix product's entry the sum of its terms'
+    magnitudes, whose rounding an fma or another order moves (the plain
+    versions' products run in cuBLAS)."""
+    scale = scale.float().abs()
+    ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) \
+        - scale
+    err = (got.float() - want.float()).abs()
+    worst = float((err / ulp).max())
+    assert worst <= n, f"{worst} ulps"
+
+
+def test_pose_algebra_forwards_match_plain(cuda_device):
+    """A1 and V1 within 2 ulps of ``se3_exp(tau) @ w2c`` and
+    ``_camera_vectors_plain`` on the card; A1's bottom row exactly
+    [0, 0, 0, 1]; each call one launch of its own."""
+    dev = cuda_device
+    for i, (name, tau_v) in enumerate(ALG_TAUS.items()):
+        tau = torch.tensor(tau_v, device=dev)
+        w2c = _alg_pose(i, dev)
+        before = dict(gsl.LAUNCHES)
+        got = se3.apply_delta(tau, w2c)
+        assert gsl.LAUNCHES["se3_apply_fwd"] == before["se3_apply_fwd"] + 1
+        want = se3.se3_exp(tau) @ w2c
+        e64 = se3.se3_exp(tau.double())
+        _within_ulps(got, want, e64.abs() @ w2c.double().abs())
+        assert torch.equal(got[3], torch.tensor([0.0, 0.0, 0.0, 1.0],
+                                                device=dev)), name
+    for seed, shift in ((5, 0.0), (6, 7.5)):
+        cam = _alg_camera(dev, seed, shift)
+        before = dict(gsl.LAUNCHES)
+        pose, intr = pm.camera_vectors(cam)
+        assert gsl.LAUNCHES["pose_vectors_fwd"] == \
+            before["pose_vectors_fwd"] + 1
+        pose_p, intr_p = pm._camera_vectors_plain(cam)
+        terms = (cam.projection.double().abs() @ cam.w2c.double().abs())
+        scale = torch.cat([cam.w2c[:3].abs(), terms[0:2], terms[3:4]])
+        _within_ulps(pose, pose_p, scale.reshape(24))
+        _within_ulps(intr, intr_p, intr_p)
+        assert pose.shape == (24,) and intr.shape == (4,)
+        assert not intr.requires_grad
+
+
+def test_pose_algebra_adjoints_match_plain(cuda_device):
+    """A2, V2 and S1 within 1e-6 (relative to the largest entry) of their
+    plain versions on the card, in every case twice the same bits."""
+    dev = cuda_device
+    gen = torch.Generator().manual_seed(9)
+    for i, tau_v in enumerate(ALG_TAUS.values()):
+        tau = torch.tensor(tau_v, device=dev)
+        w2c = _alg_pose(10 + i, dev)
+        g = torch.randn((4, 4), generator=gen).to(dev)
+        got = se3.apply_delta_bwd_cuda(tau, w2c, g)
+        again = se3.apply_delta_bwd_cuda(tau, w2c, g)
+        want = se3._apply_delta_adjoint(tau, w2c, g)
+        for k, a, p in zip(got, again, want):
+            assert torch.equal(k, a)
+            torch.testing.assert_close(k, p, rtol=1e-6,
+                                       atol=1e-6 * float(p.abs().max()))
+    for seed, shift in ((7, 0.0), (8, 7.5)):
+        cam = _alg_camera(dev, seed, shift)
+        gpose = torch.randn(24, generator=gen).to(dev)
+        got = pm.pose_vectors_bwd_cuda(cam, gpose)
+        want = pm._camera_vectors_adjoint(cam, gpose)
+        torch.testing.assert_close(got, want, rtol=1e-6,
+                                   atol=1e-6 * float(want.abs().max()))
+    rng = np.random.default_rng(3)
+    for t in (1.0, 2.0, 37.0):
+        g6, g2 = (torch.tensor(rng.standard_normal(n), dtype=torch.float32,
+                               device=dev) * 1e-3 for n in (6, 2))
+        state = [torch.tensor(rng.standard_normal(n) * 1e-4,
+                              dtype=torch.float32, device=dev)
+                 for n in (6, 6, 2, 2, 2)]
+        state[1], state[3] = state[1].abs(), state[3].abs()   # v >= 0
+        kern = [x.clone() for x in state]
+        plain = [x.clone() for x in state]
+        before = dict(gsl.LAUNCHES)
+        upd_k, norm_k = loc_refine.refine_adam_cuda(g6, g2, *kern, t, 1e-3)
+        assert gsl.LAUNCHES["refine_adam"] == before["refine_adam"] + 1
+        upd_p, norm_p = loc_refine.refine_adam_plain(g6, g2, *plain, t, 1e-3)
+        for k, p in zip(kern + [upd_k, norm_k], plain + [upd_p, norm_p]):
+            torch.testing.assert_close(k, p, rtol=1e-6,
+                                       atol=1e-6 * float(p.abs().max()))
+
+
+def test_pose_algebra_rejects_bad_cuda_inputs(cuda_device):
+    """CUDA tensors launch the pose-algebra kernels or raise: no other
+    shape or dtype falls back to the plain ops on the card."""
+    dev = cuda_device
+    w2c = _alg_pose(0, dev)
+    tau = torch.zeros(6, device=dev)
+    before = dict(gsl.LAUNCHES)
+    with pytest.raises(TypeError, match="tau: dtype"):
+        se3.apply_delta(tau.double(), w2c)
+    with pytest.raises(ValueError, match="tau: shape"):
+        se3.apply_delta(torch.zeros((2, 6), device=dev), w2c)
+    with pytest.raises(TypeError, match="w2c: dtype"):
+        se3.apply_delta(tau, w2c.double())
+    with pytest.raises(ValueError, match="w2c: on cpu"):
+        se3.apply_delta(tau, w2c.cpu())
+    cam = _alg_camera(dev, 5, 0.0)
+    with pytest.raises(TypeError, match="w2c: dtype"):
+        pm.camera_vectors(cam.replace(w2c=cam.w2c.double()))
+    with pytest.raises(TypeError, match="fx: dtype"):
+        pm.camera_vectors(cam.replace(fx=cam.fx.double()))
+    with pytest.raises(ValueError, match="intrinsics"):
+        pm.camera_vectors(cam.replace(fx=cam.fx.clone().requires_grad_()))
+    with pytest.raises(TypeError, match="g6: dtype"):
+        loc_refine.refine_adam(tau.double(), tau[:2], *(
+            torch.zeros(n, device=dev) for n in (6, 6, 2, 2, 2)), 1.0, 1e-3)
+    assert dict(gsl.LAUNCHES) == before
+
+
+def _plain_chain(monkeypatch) -> None:
+    """Route the refinement's pose algebra through the plain ops on the
+    card."""
+    monkeypatch.setattr(se3, "apply_delta",
+                        lambda tau, w2c: se3.se3_exp(tau) @ w2c)
+    monkeypatch.setattr(pm, "camera_vectors", pm._camera_vectors_plain)
+    monkeypatch.setattr(loc_refine, "refine_adam",
+                        loc_refine.refine_adam_plain)
+
+
+def _hook_first_tangent(monkeypatch) -> list:
+    """Wrap ``se3.apply_delta`` as the benchmark's capture does: a hook on
+    the first tangent it is given that requires grad records its
+    gradient."""
+    inner = se3.apply_delta
+    grads = []
+
+    def apply_delta(tau, w2c):
+        if tau.requires_grad and not grads:
+            grads.append(None)
+            tau.register_hook(lambda g: grads.__setitem__(0, g.clone()))
+        return inner(tau, w2c)
+
+    monkeypatch.setattr(se3, "apply_delta", apply_delta)
+    return grads
+
+
+def test_refine_pose_kernels_match_plain_chain(case, monkeypatch):
+    """A 10-iteration pose-mode refinement with the pose-algebra kernels
+    against the same refinement with the plain ops on the card: the same
+    iterations, the pose within 1e-5, the same first tangent gradient at a
+    hook on the tangent given to ``se3.apply_delta``; no ``se3_row`` wait
+    and, per iteration, A1 twice, A2, V1, V2 and S1 once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gs_localization_torch.utils import profiling
+
+    cfg, dev = case["cfg"], case["device"]
+    g, cam = _on(case["arrays"], dev)
+    with torch.no_grad():
+        gt = rasterize(g, cam, cfg)
+    mask = torch.ones(gt.color.shape[:2], dtype=torch.bool, device=dev)
+    # every covered pixel counts, so that the sparse single-chunk scene
+    # has a gradient and the loop does not stop at its first iteration
+    tcfg = TrackingConfig(num_iters=10, lr=1e-3, convergence=1e-4,
+                          opacity_threshold=0.0, rebin_every=4,
+                          pose_mode=True)
+    cam0 = cam.with_delta(torch.tensor(TAU, device=dev))
+    runs = []
+    for plain in (False, True):
+        with monkeypatch.context() as mp:
+            if plain:
+                _plain_chain(mp)
+            grads = _hook_first_tangent(mp)
+            before = dict(gsl.LAUNCHES)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]):
+                profiling.reset()
+                res = refine_pose(g, cam0, gt.color, mask, tcfg, cfg,
+                                  gt_depth=gt.depth)
+                torch.cuda.synchronize()
+            counters = profiling.records()["counters"]
+            launches = {k: gsl.LAUNCHES[k] - before[k]
+                        for k in ("se3_apply_fwd", "se3_apply_bwd",
+                                  "pose_vectors_fwd", "pose_vectors_bwd",
+                                  "refine_adam")}
+            runs.append((res, grads[0], counters, launches))
+    (res_k, g_k, c_k, l_k), (res_p, g_p, c_p, l_p) = runs
+    n = res_k.num_iters
+    assert n == res_p.num_iters == c_k["refine_iters"] > 1
+    assert float(g_p.abs().max()) > 0
+    torch.testing.assert_close(res_k.w2c, res_p.w2c, atol=1e-5, rtol=0)
+    torch.testing.assert_close(res_k.exposure_ab, res_p.exposure_ab,
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(g_k, g_p, rtol=1e-5,
+                               atol=1e-5 * float(g_p.abs().max()))
+    assert "host_sync/se3_row" not in c_k
+    assert c_p["host_sync/se3_row"] == 2 * n
+    assert l_k == {"se3_apply_fwd": 2 * n, "se3_apply_bwd": n,
+                   "pose_vectors_fwd": n, "pose_vectors_bwd": n,
+                   "refine_adam": n}
+    assert set(l_p.values()) == {0}
+
+
+def test_pose_algebra_waits_for_nothing(case):
+    """An iteration's pose algebra on the card (the tangent into the
+    camera vectors, their backward, the Adam step and the retraction)
+    makes no synchronising call."""
+    dev = case["device"]
+    _, cam = _on(case["arrays"], dev)
+    zeros = [torch.zeros(n, device=dev) for n in (6, 6, 2, 2, 2)]
+    pm.camera_vectors(cam.with_delta(torch.zeros(6, device=dev)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tau = torch.zeros(6, device=dev, requires_grad=True)
+        pose, _ = pm.camera_vectors(cam.with_delta(tau))
+        (g_tau,) = torch.autograd.grad(pose, tau, torch.ones_like(pose))
+        upd6, norm = loc_refine.refine_adam(g_tau, g_tau[:2], *zeros, 1.0,
+                                            1e-3)
+        se3.apply_delta(upd6, cam.w2c)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def test_wrappers_reject_bad_cuda_inputs(case):
@@ -1321,9 +1565,8 @@ def test_binning_launch_counts(cuda_device):
         bin_stream_for(prep, cam, cfg)
     bin_gaussians_for(prep, cam, cfg)
     delta = {k: gsl.LAUNCHES[k] - before[k] for k in before}
-    assert delta == {"stream_fwd": 0, "stream_bwd": 0, "pregathered_fwd": 0,
-                     "pregathered_bwd": 0, "bin_owner": 4, "bin_place": 3,
-                     "pose_project_fwd": 0, "pose_project_bwd": 0}
+    assert delta == {**dict.fromkeys(gsl.LAUNCHES, 0), "bin_owner": 4,
+                     "bin_place": 3}
 
 
 def test_live_length_record_waits_for_nothing(cuda_device):
