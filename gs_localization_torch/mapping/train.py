@@ -224,9 +224,9 @@ def train_step(
 ):
     """One optimization step -> (new state, aux dict of tensors). No host
     read: the flags in ``aux`` stay on the device. Spans ``train/render``
-    (binning inside as ``render/binning``), ``train/loss``,
-    ``train/backward`` and ``train/adam`` (the update and the densify
-    statistics; ``utils/profiling.py``).
+    (binning inside as ``render/binning``), ``train/pseudo_render``,
+    ``train/loss``, ``train/backward`` and ``train/adam`` (the update and
+    the densify statistics; ``utils/profiling.py``).
 
     ``pseudo_camera``/``pseudo_view_depth`` add the few-shot pseudo-view
     term: the pseudo camera is rendered in the same graph (the step's
@@ -234,7 +234,9 @@ def train_step(
     ``lambda_pseudo_view * min-Pearson(pseudo_view_depth, its depth)`` is
     added to the loss (``aux["pseudo_view"]``; ``aux["total"]`` stays the
     main view's loss, as in the JAX step). The densify statistics come from
-    the main view only."""
+    the main view only; the capacity flags of ``aux`` cover both views
+    (``overflow`` and ``tile_overflow`` OR-ed, ``max_tile_count`` the
+    larger)."""
     g0 = state.gaussians
     with span("train/render"):
         bg = (torch.rand(3, generator=state.generator, device=g0.device)
@@ -248,8 +250,9 @@ def train_step(
             pseudo_depth=pseudo_depth, lambda_dssim=cfg.lambda_dssim,
             lambda_pseudo_depth=cfg.lambda_pseudo_depth,
             lambda_gt_depth=cfg.lambda_gt_depth)
+    pv = None
     if pseudo_camera is not None and pseudo_view_depth is not None:
-        with span("train/render"):
+        with span("train/pseudo_render"):
             pv = rasterize(g, pseudo_camera, raster_cfg, bg=bg)
         with span("train/loss"):
             pv_loss = losses.pearson_depth_loss(pseudo_view_depth, pv.depth)
@@ -265,6 +268,11 @@ def train_step(
     aux["overflow"] = out.overflow
     aux["tile_overflow"] = out.tile_overflow
     aux["max_tile_count"] = out.max_tile_count
+    if pv is not None:      # the capacity audit sees the pseudo view too
+        aux["overflow"] = out.overflow | pv.overflow
+        aux["tile_overflow"] = out.tile_overflow | pv.tile_overflow
+        aux["max_tile_count"] = torch.maximum(out.max_tile_count,
+                                              pv.max_tile_count)
     return new_state, aux
 
 

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import float32_exact, resolve_device
+from ..utils.profiling import count, span
 from .param_tree import ParamTree
 from .resize import resize
 
@@ -212,10 +213,10 @@ def _fusion(p, x, skip=None):
 @torch.no_grad()
 def dpt_forward(params: DPT, image: torch.Tensor) -> torch.Tensor:
     """(H, W, 3) RGB in [0, 1] (H, W % 32 == 0) on the net's device ->
-    (H, W) inverse depth."""
+    (H, W) inverse depth; span ``prior/net``."""
     mean = torch.tensor(_MEAN, device=image.device)
     std = torch.tensor(_STD, device=image.device)
-    with float32_exact():
+    with span("prior/net"), float32_exact():
         x = ((image - mean) / std).permute(2, 0, 1)[None]
         p = params["pretrained"]
         l1, l2, t3, t4 = hybrid_backbone(p, x)
@@ -243,22 +244,28 @@ def dpt_forward(params: DPT, image: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def estimate_depth(params: DPT, image: torch.Tensor, out_h: int, out_w: int):
     """The reference protocol: the net at 384x512, Keys-cubic resizes both
-    ways (antialiased where they downscale)."""
+    ways (antialiased where they downscale); spans ``prior/resize`` (each
+    resize) and ``prior/net``."""
     with float32_exact():
-        x = resize(image, (*NET_SIZE, 3), "cubic")
+        with span("prior/resize"):
+            x = resize(image, (*NET_SIZE, 3), "cubic")
         d = dpt_forward(params, x)
-        return resize(d, (out_h, out_w), "cubic")
+        with span("prior/resize"):
+            return resize(d, (out_h, out_w), "cubic")
 
 
 def make_dpt_estimator(params: DPT):
     """-> ``depth_estimator(rgb (H, W, 3) numpy) -> (H, W) numpy`` for
-    ``train_map``; the image goes to the net's device."""
+    ``train_map``; the image goes to the net's device, and the prior's
+    readback counts ``host_sync/prior``."""
     dev = params["pretrained"]["embed_b"].device
 
     def estimator(rgb: np.ndarray) -> np.ndarray:
         h, w = rgb.shape[:2]
         x = torch.as_tensor(np.asarray(rgb, np.float32), device=dev)
-        return estimate_depth(params, x, h, w).cpu().numpy()
+        d = estimate_depth(params, x, h, w)
+        count("host_sync/prior")
+        return d.cpu().numpy()
 
     return estimator
 

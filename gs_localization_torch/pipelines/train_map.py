@@ -17,7 +17,10 @@ training cameras; every ``sample_pseudo_interval`` iterations inside
 (start_sample_pseudo, end_sample_pseudo) one is drawn from the same
 ``rng`` right after the training camera, rendered without gradients, its
 colour passed to the estimator on the host, and the step holds the pseudo
-view's depth to that prior (``train_step``'s pseudo term).
+view's depth to that prior (``train_step``'s pseudo term). Under the
+profiler a pseudo step records the spans ``train/pseudo`` →
+``pseudo/render`` (the render without gradients) and ``pseudo/prior`` (the
+colour's readback, the estimator, the prior's upload).
 
 Images are decoded by the native threaded loader (``data/native_loader``)
 when its library builds, else by PIL; either way they are cached. Not
@@ -262,12 +265,13 @@ def train_map(
                     and cfg.start_sample_pseudo < it < cfg.end_sample_pseudo):
                 with span("train/pseudo"):
                     pseudo_cam = pseudo_cams[rng.integers(len(pseudo_cams))]
-                    with torch.no_grad():
+                    with span("pseudo/render"), torch.no_grad():
                         pv = rasterize(state.gaussians, pseudo_cam,
                                        raster_cfg)
-                    count("host_sync/pseudo_view")
-                    pseudo_view_depth = upload(
-                        depth_estimator(pv.color.cpu().numpy()), dev)
+                    with span("pseudo/prior"):
+                        count("host_sync/pseudo_view")
+                        pseudo_view_depth = upload(
+                            depth_estimator(pv.color.cpu().numpy()), dev)
 
             state, aux = train_step(state, info.camera, img, map_cfg,
                                     raster_cfg, gt_depth=dep,
